@@ -1,0 +1,55 @@
+"""Heterogeneous-replica core of the port: composite keys → SortedTable →
+ECDF stats → cost model (Eq 1–4) → HRCA (Alg 1) → HREngine (paper §4)."""
+
+from .cost_model import CostModel, LinearCostFunction, estimate_rows, estimate_rows_many
+from .ecdf import ColumnStats, TableStats
+from .engine import (
+    ColumnFamily,
+    CorruptRunError,
+    HREngine,
+    Node,
+    ReadReport,
+)
+from .hrca import HRCAResult, hrca, initial_state
+from .keys import KeySchema, pack_columns, pack_tuple
+from .ring import Partition, ReplicaHandle, TokenRing, place_replica
+from .storage import CommitLog, CompactionPolicy, Memtable, SortedRun
+from .table import ScanResult, SortedTable, slab_bounds_for, slab_bounds_many
+from .workload import Eq, Query, Range, Workload, random_workload
+
+__all__ = [
+    "CostModel",
+    "LinearCostFunction",
+    "estimate_rows",
+    "estimate_rows_many",
+    "ColumnStats",
+    "TableStats",
+    "ColumnFamily",
+    "CorruptRunError",
+    "HREngine",
+    "Node",
+    "ReadReport",
+    "HRCAResult",
+    "hrca",
+    "initial_state",
+    "KeySchema",
+    "pack_columns",
+    "pack_tuple",
+    "Partition",
+    "ReplicaHandle",
+    "TokenRing",
+    "place_replica",
+    "CommitLog",
+    "CompactionPolicy",
+    "Memtable",
+    "SortedRun",
+    "ScanResult",
+    "SortedTable",
+    "slab_bounds_for",
+    "slab_bounds_many",
+    "Eq",
+    "Query",
+    "Range",
+    "Workload",
+    "random_workload",
+]

@@ -1,0 +1,872 @@
+"""HR Engine — the shim layer of paper §4 on a simulated cluster, with
+device-resident column families served by hand-written CUDA kernels.
+
+The modules of the paper's Figure 3, as far as this slice of the port
+carries them:
+
+  Request Agency    → ``HREngine.read`` / ``read_many`` / ``write``
+  Replica Generator → ``create_column_family`` (HRCA at CREATE, then crc32
+                      placement of replicas on nodes)
+  Cost Evaluator    → ``CostModel`` over live ``TableStats``
+  Request Scheduler → cheapest-replica routing with a round-robin tie-break
+  Write Scheduler   → commit log → per-replica memtable → flushed sorted
+                      runs, each replica merging in its own layout
+
+It is the reference engine (``repro.core.engine``) cut to one token
+partition and consistency ONE: the same cost matrices, tie rule and
+round-robin draws pick the same replica for every query, and the same
+write path produces the same tables. On a ``device_resident=True`` column
+family every replica's table lives as tensors on the engine's device:
+each ``read``/``read_many`` replica group is one fused locate+scan launch
+(plus one select-compaction launch for selects with matches), each flush
+appends a run to the resident tensors, the compaction policy merges the
+run stack on the device, and every write's statistics refresh runs the
+histogram kernel there.
+
+Features of the reference outside this slice raise ``NotImplementedError``
+naming their ROADMAP.md item: views, partitions > 1, consistency above
+ONE, hedged reads, node failure and recovery, scrub and resharding.
+
+Batched reads (``read_many``) keep the reference's semantics exactly:
+the cost matrix over (replica, query) equals Q×R scalar estimates, one
+round-robin draw is consumed per query in batch order, queries are
+grouped per chosen replica, and each replica keeps a result cache keyed
+by ``(agg, value col, filters)``, invalidated by flushes and compactions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from ..obs.metrics import MetricsRegistry
+from .cost_model import (
+    CostModel,
+    estimate_rows,
+    estimate_rows_many,
+    precompute_query_stats,
+)
+from .ecdf import TableStats
+from .hrca import HRCAResult, exhaustive_search, hrca, initial_state
+from .keys import KeySchema
+from .ring import Partition, ReplicaHandle, TokenRing, place_replica
+from .storage import CommitLog, CompactionPolicy, Memtable, compact_table
+from .storage.memtable import combine_digests
+from .table import ScanResult, SortedTable
+from .workload import Query, Workload
+
+__all__ = [
+    "Node",
+    "ReplicaHandle",
+    "ColumnFamily",
+    "ReadReport",
+    "HREngine",
+    "ONE",
+    "QUORUM",
+    "ALL",
+    "CONSISTENCY_LEVELS",
+    "CorruptRunError",
+    "ENGINE_COUNTERS",
+    "resolve_device",
+]
+
+ONE = "ONE"
+QUORUM = "QUORUM"
+ALL = "ALL"
+CONSISTENCY_LEVELS = (ONE, QUORUM, ALL)
+
+
+def _not_in_slice(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md {item}); "
+        "the reference engine repro.core.HREngine has it"
+    )
+
+
+def resolve_device(device=None) -> torch.device:
+    """The engine's device: ``cuda`` unless the caller names another.
+    Raises when CUDA is asked for (explicitly or by default) and absent —
+    the port never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch.HREngine runs on CUDA by default and no CUDA device "
+            "is available; pass device='cpu' to run the plain PyTorch path"
+        )
+    return dev
+
+
+class CorruptRunError(RuntimeError):
+    """A flushed run failed its crc32 verification before merging."""
+
+
+#: Registry counters every engine registers at construction, under the
+#: names the ``stats`` dict view exposes them by.
+ENGINE_COUNTERS = (
+    "result_cache_hits",
+    "result_cache_misses",
+    "commitlog_auto_checkpoints",
+    "memtable_flushes",
+    "compactions",
+    "corrupt_runs",
+    "flush_wall_seconds",
+)
+
+
+@dataclasses.dataclass
+class Node:
+    node_id: int
+    tables: dict[tuple[str, int], SortedTable] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class ColumnFamily:
+    """One keyspace: a single token partition holding the heterogeneous
+    replica set (one table per layout in ``slot_layouts``), its commit
+    log, memtables, compaction policy and round-robin counter. ``stats``
+    and the cost model hold the selectivities the planner ranks
+    replicas with."""
+
+    name: str
+    schema: KeySchema
+    key_names: tuple[str, ...]
+    value_names: tuple[str, ...]
+    slot_layouts: tuple[tuple[str, ...], ...]
+    ring: TokenRing
+    partitions: list[Partition]
+    stats: TableStats
+    cost_model: CostModel
+    hrca_result: HRCAResult | None = None
+    # replica tables held as tensors on the engine's device: reads go
+    # through the fused kernels, writes append runs to the tensors
+    device_resident: bool = False
+    # group-commit staging threshold (0 = write-through: every write flushes)
+    memtable_rows: int = 0
+
+    @property
+    def replication_factor(self) -> int:
+        return len(self.slot_layouts)
+
+    @property
+    def replicas(self) -> list[ReplicaHandle]:
+        """All replica handles in global-replica-id order."""
+        return [r for part in self.partitions for r in part.replicas]
+
+    @property
+    def commitlog(self) -> CommitLog | None:
+        return self.partitions[0].commitlog
+
+    @property
+    def memtables(self) -> dict[int, Memtable]:
+        return {
+            rid: mt for part in self.partitions for rid, mt in part.memtables.items()
+        }
+
+    @property
+    def compaction(self) -> CompactionPolicy | None:
+        return self.partitions[0].compaction
+
+    @property
+    def rr_counter(self) -> "itertools.count":
+        return self.partitions[0].rr_counter
+
+    @rr_counter.setter
+    def rr_counter(self, counter: "itertools.count") -> None:
+        self.partitions[0].rr_counter = counter
+
+
+@dataclasses.dataclass
+class ReadReport:
+    replica_id: int
+    node_id: int
+    estimated_rows: float
+    estimated_cost: float
+    wall_seconds: float  # measured scan time
+    rows_scanned: int
+
+
+_Ranked = tuple[float, float, ReplicaHandle]  # (est_cost, est_rows, handle)
+
+
+def _tie_threshold(best_cost: float) -> float:
+    """Cost at or under which a replica counts as tied with the best.
+    Shared by ``read`` and ``read_many``: batched/sequential routing
+    parity depends on both using the identical float expression."""
+    return best_cost + abs(best_cost) * 1e-9 + 1e-12
+
+
+def _schedule_picks(cost_mat: np.ndarray, counter) -> np.ndarray:
+    """Request Scheduler core: per query (column of the ``(replicas,
+    queries)`` cost matrix) the within-tolerance ties are the first
+    tie_count entries of the column's stable ascending order — the tie
+    list a scalar ``read`` builds — and one round-robin draw is consumed
+    per query in batch order. Returns each query's picked replica row."""
+    order = np.argsort(cost_mat, axis=0, kind="stable")  # (R, Q)
+    sorted_costs = np.take_along_axis(cost_mat, order, axis=0)
+    thresh = _tie_threshold(sorted_costs[0])  # elementwise over queries
+    tie_counts = (sorted_costs <= thresh[None, :]).sum(axis=0)
+    n_q = cost_mat.shape[1]
+    draws = np.fromiter((next(counter) for _ in range(n_q)), dtype=np.int64, count=n_q)
+    return order[draws % tie_counts, np.arange(n_q)]
+
+
+def _group_by_pick(picks: np.ndarray) -> dict[int, list[int]]:
+    """Group query indices by their picked replica row, in order of first
+    pick; one batched scan serves each group."""
+    groups: dict[int, list[int]] = {}
+    for i, k in enumerate(picks):
+        groups.setdefault(int(k), []).append(i)
+    return groups
+
+
+class HREngine:
+    """Simulated-cluster HR engine (Request Agency facade).
+
+    ``device`` (default ``cuda``; raises if CUDA is absent) is where
+    device-resident column families keep their tensors and run their
+    kernels; pass ``device="cpu"`` to run the plain PyTorch versions.
+    A per-replica result cache maps ``(agg, value col, filter
+    signature) → ScanResult``, fed by both ``read`` and ``read_many``,
+    bounded in entries (FIFO) and in retained select-index bytes, and
+    invalidated by flushes and compactions; hit/miss counters are on
+    :attr:`stats`. Every flushed run is checksum-verified before it
+    merges, and the default :class:`CompactionPolicy` folds the run
+    stack.
+    """
+
+    def __init__(
+        self,
+        n_nodes: int = 6,
+        *,
+        device=None,
+        memtable_rows: int = 0,
+        commitlog_checkpoint_records: int = 256,
+    ) -> None:
+        if n_nodes < 1:
+            raise ValueError("need at least one node")
+        if memtable_rows < 0:
+            raise ValueError("memtable_rows must be >= 0 (0 = write-through)")
+        if commitlog_checkpoint_records < 0:
+            raise ValueError(
+                "commitlog_checkpoint_records must be >= 0 (0 = no "
+                "automatic checkpointing)"
+            )
+        self.device = resolve_device(device)
+        self.nodes = [Node(node_id=i) for i in range(n_nodes)]
+        self.column_families: dict[str, ColumnFamily] = {}
+        self._result_cache: dict[tuple[str, int], dict] = {}
+        # running total of selected-array bytes per replica map
+        self._cache_sel_bytes: dict[tuple[str, int], int] = {}
+        self.memtable_rows = memtable_rows
+        self.compaction = CompactionPolicy()
+        # auto-checkpoint trigger: collapse the commit log after a flush
+        # once more than this many records accumulated (0 disables)
+        self.commitlog_checkpoint_records = commitlog_checkpoint_records
+        self.metrics = MetricsRegistry()
+        for _name in ENGINE_COUNTERS:
+            self.metrics.counter(_name)
+        self._cache_hits = self.metrics.counter("result_cache_hits")
+        self._cache_misses = self.metrics.counter("result_cache_misses")
+        self._auto_checkpoints = self.metrics.counter("commitlog_auto_checkpoints")
+        self._flushes = self.metrics.counter("memtable_flushes")
+        self._compactions = self.metrics.counter("compactions")
+        self._corrupt_runs = self.metrics.counter("corrupt_runs")
+        self._flush_wall = self.metrics.counter("flush_wall_seconds")
+
+    # -- stats and result cache ----------------------------------------------
+
+    @property
+    def stats(self) -> dict:
+        """Operational counters (a read-through view of :attr:`metrics`)
+        plus structural keys computed live: log records and rows, staged
+        rows and result-cache occupancy."""
+        parts = [p for cf in self.column_families.values() for p in cf.partitions]
+        out = {name: int(self.metrics.value(name)) for name in ENGINE_COUNTERS}
+        out["flush_wall_seconds"] = self._flush_wall.value
+        out.update(
+            result_cache_entries=sum(len(c) for c in self._result_cache.values()),
+            result_cache_select_bytes=sum(self._cache_sel_bytes.values()),
+            partitions=len(parts),
+            commitlog_records=sum(len(p.commitlog) for p in parts),
+            commitlog_rows=sum(p.commitlog.n_rows for p in parts),
+            staged_rows=sum(mt.n_staged for p in parts for mt in p.memtables.values()),
+        )
+        return out
+
+    def reset_stats(self) -> None:
+        """Zero every registry-backed counter in place."""
+        self.metrics.reset()
+
+    @staticmethod
+    def _cache_keys(queries: list[Query]) -> list:
+        """One key per query: aggregation + value column + filter
+        signature (the cache is per replica, so the layout is implicit)."""
+        return [(q.agg, q.value_col, tuple(sorted(q.filters.items()))) for q in queries]
+
+    # each replica's map holds at most this many entries (FIFO); a select's
+    # cached index array may be arbitrarily large, so entries past the
+    # per-entry byte size are served but never cached, and each map evicts
+    # FIFO until its retained selected-array bytes fit the budget
+    _CACHE_MAX_ENTRIES = 4096
+    _CACHE_MAX_SELECT_BYTES = 1 << 20
+    _CACHE_MAX_MAP_BYTES = 64 << 20
+
+    def _cache_store(self, map_key, cache: dict, key, result: ScanResult) -> None:
+        """Cache hits hand out the same ScanResult object, so a select's
+        index array is frozen on the way in."""
+        nb = 0 if result.selected is None else int(result.selected.nbytes)
+        if nb > self._CACHE_MAX_SELECT_BYTES or nb > self._CACHE_MAX_MAP_BYTES:
+            return
+        if result.selected is not None:
+            result.selected.setflags(write=False)
+        total = self._cache_sel_bytes.get(map_key, 0)
+        old = cache.pop(key, None)
+        if old is not None and old.selected is not None:
+            total -= old.selected.nbytes
+        while cache and (
+            len(cache) >= self._CACHE_MAX_ENTRIES or total + nb > self._CACHE_MAX_MAP_BYTES
+        ):
+            evicted = cache.pop(next(iter(cache)))
+            if evicted.selected is not None:
+                total -= evicted.selected.nbytes
+        cache[key] = result
+        self._cache_sel_bytes[map_key] = total + nb
+
+    def _invalidate_result_cache(self, cf_name: str, replica_id: int) -> None:
+        self._result_cache.pop((cf_name, replica_id), None)
+        self._cache_sel_bytes.pop((cf_name, replica_id), None)
+
+    # -- Replica Generator ---------------------------------------------------
+
+    def _place(self, replica_id: int, cf_name: str) -> int:
+        """Replica placement hash(replica_id, cf) → node (crc32)."""
+        return place_replica(cf_name, replica_id, len(self.nodes))
+
+    def create_column_family(
+        self,
+        name: str,
+        key_cols: Mapping[str, np.ndarray],
+        value_cols: Mapping[str, np.ndarray],
+        *,
+        replication_factor: int = 3,
+        mechanism: str = "HR",
+        workload: Workload | None = None,
+        schema: KeySchema | None = None,
+        layouts: Sequence[Sequence[str]] | None = None,
+        device_resident: bool = False,
+        views: bool = False,
+        memtable_rows: int | None = None,
+        partitions: int = 1,
+    ) -> ColumnFamily:
+        """CREATE COLUMN FAMILY: choose replica structures, build tables.
+
+        mechanism:
+          "HR" — layouts from HRCA over ``workload`` (paper).
+          "TR" — the single best expert layout, identical on all replicas
+                 (exhaustive for ≤5 keys, else annealing + greedy polish).
+        Explicit ``layouts`` override both.
+
+        With ``device_resident=True`` every replica table is placed on the
+        engine's device at creation; reads then answer sum, count and
+        select queries with the fused kernels, writes append to the
+        resident tensors and the compaction policy merges them on the
+        device. Raises if the schema exceeds the device path's per-column
+        two-lane budget. The CREATE-time dataset is record 0 of the
+        column family's commit log.
+        """
+        if views:
+            raise _not_in_slice("views=True", "Queue 1 item 1")
+        if partitions != 1:
+            raise _not_in_slice("partitions > 1", "Queue 1 item 3")
+        if name in self.column_families:
+            raise ValueError(f"column family {name!r} exists")
+        if schema is None:
+            schema = KeySchema.for_columns(key_cols)
+        key_names = tuple(key_cols)
+        value_names = tuple(value_cols)
+        stats = TableStats.from_columns(key_cols, schema)
+        model = CostModel(stats=stats)
+        n = replication_factor
+        hrca_result: HRCAResult | None = None
+        ring = TokenRing.build(schema, key_names, 1)
+
+        if layouts is not None:
+            chosen = tuple(tuple(a) for a in layouts)
+            if len(chosen) != n:
+                raise ValueError("len(layouts) != replication_factor")
+        elif mechanism == "TR":
+            if workload is None:
+                chosen = tuple(tuple(key_names) for _ in range(n))
+            else:
+                best = self._expert_layout(model, workload, key_names)
+                chosen = tuple(best for _ in range(n))
+        elif mechanism == "HR":
+            if workload is None:
+                raise ValueError("HR mechanism needs a workload for HRCA")
+            hrca_result = hrca(model, workload, initial_state(key_names, n))
+            chosen = hrca_result.layouts
+        else:
+            raise ValueError(f"unknown mechanism {mechanism!r}")
+
+        handles: list[ReplicaHandle] = []
+        memtables: dict[int, Memtable] = {}
+        digest: int | None = None  # layout-independent: one per partition
+        for slot, layout in enumerate(chosen):
+            rid = slot
+            table = SortedTable.from_columns(key_cols, value_cols, layout, schema)
+            if device_resident:
+                table.place_on_device(self.device)
+            if digest is None:
+                digest = table.seal_checksum().stored_digest
+            else:
+                table.stored_digest = digest
+            node_id = self._place(rid, name)
+            self.nodes[node_id].tables[(name, rid)] = table
+            handles.append(ReplicaHandle(rid, tuple(layout), node_id, partition_id=0))
+            memtables[rid] = Memtable(layout, schema, key_names, value_names)
+        log = CommitLog(key_names=key_names, value_names=value_names)
+        log.append(key_cols, value_cols)  # record 0: the CREATE-time rows
+        lo, hi = ring.token_range(0)
+        part = Partition(
+            partition_id=0,
+            token_lo=lo,
+            token_hi=hi,
+            replicas=handles,
+            commitlog=log,
+            memtables=memtables,
+            compaction=self.compaction,
+        )
+        cf = ColumnFamily(
+            name=name,
+            schema=schema,
+            key_names=key_names,
+            value_names=value_names,
+            slot_layouts=tuple(tuple(a) for a in chosen),
+            ring=ring,
+            partitions=[part],
+            stats=stats,
+            cost_model=model,
+            hrca_result=hrca_result,
+            device_resident=device_resident,
+            memtable_rows=self.memtable_rows if memtable_rows is None else memtable_rows,
+        )
+        self.column_families[name] = cf
+        return cf
+
+    @staticmethod
+    def _expert_layout(
+        model: CostModel, workload: Workload, key_names: tuple[str, ...]
+    ) -> tuple[str, ...]:
+        if len(key_names) <= 5:
+            state, _ = exhaustive_search(model, workload, key_names, 1)
+            return state[0]
+        res = hrca(
+            model, workload, initial_state(key_names, 1), greedy_descent=True, k_max=2000
+        )
+        return res.layouts[0]
+
+    # -- Cost Evaluator / Request Scheduler -----------------------------------
+
+    def _table(self, cf: ColumnFamily, r: ReplicaHandle) -> SortedTable:
+        return self.nodes[r.node_id].tables[(cf.name, r.replica_id)]
+
+    def _ranked_replicas(self, cf: ColumnFamily, query: Query) -> list[_Ranked]:
+        """Replicas ranked by estimated cost (Eq 2–3)."""
+        ranked: list[_Ranked] = []
+        for r in cf.replicas:
+            rows = estimate_rows(cf.stats, r.layout, query)
+            cost = cf.cost_model.cost_fn(len(r.layout))(rows)
+            ranked.append((cost, rows, r))
+        ranked.sort(key=lambda t: t[0])
+        return ranked
+
+    @staticmethod
+    def _check_read_options(consistency: str, hedge: bool) -> None:
+        if consistency not in CONSISTENCY_LEVELS:
+            raise ValueError(
+                f"unknown consistency {consistency!r} (expected one of {CONSISTENCY_LEVELS})"
+            )
+        if consistency != ONE:
+            raise _not_in_slice(f"consistency={consistency}", "Queue 1 item 4")
+        if hedge:
+            raise _not_in_slice("hedge=True", "Queue 1 item 4")
+
+    def read(
+        self,
+        cf_name: str,
+        query: Query,
+        *,
+        hedge: bool = False,
+        consistency: str = ONE,
+        trace=None,
+    ) -> tuple[ScanResult, ReadReport]:
+        """Route to the cheapest replica; ties broken round-robin.
+        Same costs, tie rule and round-robin counter as ``read_many``, so
+        routing is identical to ``read_many`` at Q = 1. ``trace`` (an open
+        span, or None) hangs an ``engine.read`` subtree under the
+        caller's."""
+        self._check_read_options(consistency, hedge)
+        cf = self.column_families[cf_name]
+        span = (
+            trace.child("engine.read", cf=cf_name, level=consistency)
+            if trace is not None
+            else None
+        )
+        try:
+            ranked = self._ranked_replicas(cf, query)
+            best_cost = ranked[0][0]
+            ties = [t for t in ranked if t[0] <= _tie_threshold(best_cost)]
+            entry = ties[next(cf.rr_counter) % len(ties)]
+            return self._execute_scalar(cf, entry, query, trace=span)
+        finally:
+            if span is not None:
+                span.end()
+
+    def _execute_scalar(
+        self, cf: ColumnFamily, entry: _Ranked, query: Query, *, trace=None,
+    ) -> tuple[ScanResult, ReadReport]:
+        """Execute one query on one replica through ``_scan_with_cache``."""
+        est_cost, est_rows, r = entry
+        g = (
+            trace.child(
+                "engine.group_scan", replica=r.replica_id, node=r.node_id, queries=1,
+            )
+            if trace is not None
+            else None
+        )
+        scans, walls = self._scan_with_cache(cf, r, [query], trace=g)
+        if g is not None:
+            g.end(rows=int(scans[0].rows_scanned))
+        return scans[0], ReadReport(
+            replica_id=r.replica_id,
+            node_id=r.node_id,
+            estimated_rows=est_rows,
+            estimated_cost=est_cost,
+            wall_seconds=walls[0],
+            rows_scanned=scans[0].rows_scanned,
+        )
+
+    def read_many(
+        self,
+        cf_name: str,
+        queries: Sequence[Query],
+        *,
+        hedge: bool = False,
+        consistency: str = ONE,
+        trace=None,
+    ) -> list[tuple[ScanResult, ReadReport]]:
+        """Batched ``read``: one scheduler pass and one grouped scan per
+        chosen replica. Returns per-query ``(ScanResult, ReadReport)`` in
+        batch order; results and routing are identical to calling ``read``
+        on each query in sequence."""
+        self._check_read_options(consistency, hedge)
+        cf = self.column_families[cf_name]
+        queries = list(queries)
+        if not queries:
+            return []
+        span = (
+            trace.child(
+                "engine.read_many", cf=cf_name, queries=len(queries), level=consistency
+            )
+            if trace is not None
+            else None
+        )
+        try:
+            replicas = cf.replicas
+            n_q = len(queries)
+            # vectorized Cost Evaluator: Eq (1)-(2) over all (replica,
+            # query); per-column selectivities are extracted once
+            plan = span.child("engine.plan") if span is not None else None
+            pre = precompute_query_stats(cf.stats, queries, cf.key_names)
+            rows_mat = np.stack(
+                [estimate_rows_many(cf.stats, r.layout, queries, pre) for r in replicas]
+            )
+            cost_mat = np.stack(
+                [
+                    cf.cost_model.cost_fn(len(r.layout)).many(rows_mat[k])
+                    for k, r in enumerate(replicas)
+                ]
+            )
+            picks = _schedule_picks(cost_mat, cf.rr_counter)
+            if plan is not None:
+                plan.end(replicas=len(replicas))
+            results: list[ScanResult | None] = [None] * n_q
+            reports: list[ReadReport | None] = [None] * n_q
+            for k, sub in _group_by_pick(picks).items():
+                self._execute_group(
+                    cf, replicas[k], sub, queries, rows_mat[k], cost_mat[k], results, reports,
+                    trace=span,
+                )
+            return list(zip(results, reports))  # type: ignore[arg-type]
+        finally:
+            if span is not None:
+                span.end()
+
+    def _scan_with_cache(
+        self, cf: ColumnFamily, r: ReplicaHandle, group: list[Query], *, trace=None,
+    ) -> tuple[list[ScanResult], list[float]]:
+        """Core scan for one replica's query group: read-barrier flush,
+        result cache, one ``execute_many`` for the misses. Returns per-query ``(scans, walls)`` aligned with
+        ``group``; cache hits carry zero attributed wall."""
+        self._ensure_flushed(cf, r, trace=trace)
+        table = self._table(cf, r)
+        cp = trace.child("engine.cache_probe") if trace is not None else None
+        cache = self._result_cache.setdefault((cf.name, r.replica_id), {})
+        ckeys = self._cache_keys(group)
+        hit_j = {j for j, k in enumerate(ckeys) if k in cache}
+        miss_j = [j for j in range(len(group)) if j not in hit_j]
+        if cp is not None:
+            cp.end(hits=len(hit_j), misses=len(miss_j))
+        sc = (
+            trace.child("engine.scan", queries=len(miss_j))
+            if trace is not None and miss_j
+            else None
+        )
+        t0 = time.perf_counter()
+        miss_scans = table.execute_many([group[j] for j in miss_j], trace=sc) if miss_j else []
+        wall = time.perf_counter() - t0
+        if sc is not None:
+            sc.end(rows=int(sum(s.rows_scanned for s in miss_scans)))
+        per_q_wall = wall / len(miss_j) if miss_j else 0.0
+        scans: list[ScanResult | None] = [None] * len(group)
+        walls = [0.0] * len(group)
+        # read the hits out BEFORE storing misses: a store can FIFO-evict
+        # a key that was a hit when hit_j was computed
+        for j in hit_j:
+            scans[j] = cache[ckeys[j]]
+        for j, sr in zip(miss_j, miss_scans):
+            scans[j] = sr
+            walls[j] = per_q_wall
+            self._cache_store((cf.name, r.replica_id), cache, ckeys[j], sr)
+        self._cache_hits.inc(len(hit_j))
+        self._cache_misses.inc(len(miss_j))
+        return scans, walls  # type: ignore[return-value]
+
+    def _execute_group(
+        self,
+        cf: ColumnFamily,
+        r: ReplicaHandle,
+        qidx: list[int],
+        queries: list[Query],
+        est_rows: np.ndarray,
+        est_costs: np.ndarray,
+        results: list,
+        reports: list,
+        *,
+        trace=None,
+    ) -> None:
+        """Run one replica's query group via ``_scan_with_cache``; the
+        measured wall is split evenly across the queries that executed —
+        cache hits are served at zero attributed wall."""
+        group = [queries[i] for i in qidx]
+        g = (
+            trace.child(
+                "engine.group_scan", replica=r.replica_id, node=r.node_id, queries=len(qidx),
+            )
+            if trace is not None
+            else None
+        )
+        scans, walls = self._scan_with_cache(cf, r, group, trace=g)
+        if g is not None:
+            g.end(rows=int(sum(sr.rows_scanned for sr in scans)))
+        for j, i in enumerate(qidx):
+            sr = scans[j]
+            results[i] = sr
+            reports[i] = ReadReport(
+                replica_id=r.replica_id,
+                node_id=r.node_id,
+                estimated_rows=float(est_rows[i]),
+                estimated_cost=float(est_costs[i]),
+                wall_seconds=walls[j],
+                rows_scanned=sr.rows_scanned,
+            )
+
+    # -- Write Scheduler -------------------------------------------------------
+
+    def write(
+        self,
+        cf_name: str,
+        key_cols: Mapping[str, np.ndarray],
+        value_cols: Mapping[str, np.ndarray],
+        *,
+        trace=None,
+    ) -> float:
+        """Commit a batch write through the durable path and refresh
+        stats; returns wall seconds. The batch is (1) appended to the
+        column family's commit log, (2) staged into each replica's
+        memtable, and (3) flushed as one sorted run per replica when the
+        staging threshold is reached (``memtable_rows``; 0 =
+        write-through). On a device-resident column family the statistics refresh runs
+        the histogram kernel on the engine's device, each flush appends
+        its run to the resident tensors, and the compaction policy merges
+        the run stack on the device once it outgrows the base."""
+        cf = self.column_families[cf_name]
+        t0 = time.perf_counter()
+        w = (
+            trace.child(
+                "engine.write", cf=cf_name,
+                rows=int(len(next(iter(key_cols.values())))) if key_cols else 0,
+            )
+            if trace is not None
+            else None
+        )
+        part = cf.partitions[0]
+        la = w.child("engine.log_append") if w is not None else None
+        part.commitlog.append(key_cols, value_cols)
+        rec = part.commitlog.tail
+        if la is not None:
+            la.end(partitions=1)
+        ms = w.child("engine.memtable_stage") if w is not None else None
+        # the record's columns are the log's own immutable copies, so
+        # every memtable stages them by reference — one copy per write
+        for r in part.replicas:
+            part.memtables[r.replica_id].stage(rec.key_cols, rec.value_cols, copy=False)
+        cf.stats.merge_rows(key_cols, device=self.device if cf.device_resident else None)
+        if ms is not None:
+            ms.end()
+        if cf.memtable_rows <= 0 or any(
+            self._memtable(cf, r).n_staged >= cf.memtable_rows for r in cf.replicas
+        ):
+            self._flush_replicas(cf, cf.replicas, trace=w)
+        if w is not None:
+            w.end()
+        return time.perf_counter() - t0
+
+    def _flush_replicas(
+        self, cf: ColumnFamily, replicas: Sequence[ReplicaHandle], *, trace=None,
+    ) -> None:
+        """Flush the given replicas' staged rows: one sorted run per
+        replica (in its own layout), checksum-verified and merged via
+        ``merge_run``, result cache invalidated, then the compaction
+        policy applied to the merged table. A run that fails its checksum
+        raises :class:`CorruptRunError` before it merges, and its rows
+        stay staged."""
+        pending = [
+            r for r in replicas
+            if self._memtable(cf, r).n_staged
+        ]
+        if not pending:
+            return
+        t0 = time.perf_counter()
+        part = cf.partitions[0]
+        for r in pending:
+            # peek, don't drain: the memtable is cleared only after the
+            # merged table is installed, so an exception never loses rows
+            node = self.nodes[r.node_id]
+            fs = (
+                trace.child(
+                    "engine.flush", replica=r.replica_id, node=r.node_id,
+                    rows=int(self._memtable(cf, r).n_staged),
+                )
+                if trace is not None
+                else None
+            )
+            try:
+                run = self._memtable(cf, r).peek_run()
+                if not run.verify():
+                    self._corrupt_runs.inc()
+                    raise CorruptRunError(
+                        f"flush of {cf.name!r} replica {r.replica_id}: sorted "
+                        "run failed its checksum"
+                    )
+                table = node.tables[(cf.name, r.replica_id)]
+                fm = fs.child("engine.flush_merge") if fs is not None else None
+                merged = table.merge_run(run, trace=fm)
+                if fm is not None:
+                    fm.end()
+                # extend the seal with the run's digest — O(run), and
+                # derived from durable history, never from the arrays
+                if table.stored_digest is not None:
+                    merged.stored_digest = combine_digests(table.stored_digest, run.digest)
+                else:
+                    merged.seal_checksum()
+            except Exception as e:
+                if fs is not None:
+                    fs.end(error=type(e).__name__)
+                raise
+            if fs is not None:
+                fs.end()
+            if cf.device_resident and not merged.device_resident:
+                merged.place_on_device(self.device)
+            node.tables[(cf.name, r.replica_id)] = merged
+            self._memtable(cf, r).clear()
+            self._flushes.inc()
+            self._invalidate_result_cache(cf.name, r.replica_id)
+            if part.compaction is not None:
+                tc = trace.tracer.now() if trace is not None else 0.0
+                if compact_table(merged, part.compaction):
+                    # content unchanged by compaction: the seal carries over
+                    self._compactions.inc()
+                    self._invalidate_result_cache(cf.name, r.replica_id)
+                    if trace is not None:
+                        trace.child("engine.compaction", t=tc, replica=r.replica_id).end()
+        # count-based auto-checkpoint once every replica is drained
+        k = self.commitlog_checkpoint_records
+        log = part.commitlog
+        if (
+            k
+            and log.should_checkpoint(k)
+            and not any(mt.n_staged for mt in part.memtables.values())
+        ):
+            log.checkpoint()
+            self._auto_checkpoints.inc()
+        self._flush_wall.inc(time.perf_counter() - t0)
+
+    def _memtable(self, cf: ColumnFamily, r: ReplicaHandle) -> Memtable:
+        return cf.partitions[r.partition_id].memtables[r.replica_id]
+
+    def _ensure_flushed(self, cf: ColumnFamily, r: ReplicaHandle, *, trace=None) -> None:
+        """Flush one replica's pending staged rows (read barrier)."""
+        mt = cf.partitions[r.partition_id].memtables.get(r.replica_id)
+        if mt is not None and mt.n_staged:
+            if trace is None:
+                self._flush_replicas(cf, [r])
+            else:
+                fb = trace.child("engine.flush_barrier", rows=int(mt.n_staged))
+                self._flush_replicas(cf, [r], trace=fb)
+                fb.end()
+
+    def flush_memtables(self, cf_name: str) -> None:
+        """Drain every replica's memtable (group-commit flush)."""
+        cf = self.column_families[cf_name]
+        self._flush_replicas(cf, cf.replicas)
+
+    def checkpoint_commitlog(self, cf_name: str) -> int:
+        """Flush every replica, then collapse the commit log into one
+        snapshot record; returns its LSN."""
+        self.flush_memtables(cf_name)
+        return self.column_families[cf_name].commitlog.checkpoint()
+
+    # -- outside this slice ------------------------------------------------------
+
+    def fail_node(self, node_id: int, *, transient: bool = False) -> None:
+        raise _not_in_slice("fail_node", "Queue 1 item 4")
+
+    def node_up(self, node_id: int) -> float:
+        raise _not_in_slice("node_up", "Queue 1 item 4")
+
+    def recover_node(self, node_id: int, *, source: str = "log") -> float:
+        raise _not_in_slice("recover_node", "Queue 1 item 4")
+
+    def scrub_column_family(self, cf_name: str, *, repair: bool = True) -> dict:
+        raise _not_in_slice("scrub_column_family", "Queue 1 item 4")
+
+    def split_partition(self, cf_name: str, *args, **kwargs) -> None:
+        raise _not_in_slice("split_partition", "Queue 1 item 4")
+
+    def merge_partitions(self, cf_name: str, *args, **kwargs) -> None:
+        raise _not_in_slice("merge_partitions", "Queue 1 item 4")
+
+    def rebalance(self, cf_name: str, *args, **kwargs) -> int:
+        raise _not_in_slice("rebalance", "Queue 1 item 4")
+
+    # -- introspection -------------------------------------------------------------
+
+    def layouts(self, cf_name: str) -> tuple[tuple[str, ...], ...]:
+        """Per-replica layouts in global replica-id order."""
+        return tuple(r.layout for r in self.column_families[cf_name].replicas)

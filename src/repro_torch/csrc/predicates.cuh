@@ -1,0 +1,96 @@
+// Shared device helpers for the read-path kernels (scan_locate.cu,
+// select_compact.cu): the resident key layout, the residual and slab
+// predicates, and the warp reduction.
+//
+// Layout (kernels/ops.py): key lanes are int32 rows of a [K_pad, N_pad]
+// row-major tensor, lane l of row r at keys[l * n_pad + r]. A logical key
+// column of <= 30 bits occupies one lane; a column of 31-60 bits occupies
+// a (v >> 30, v & (2^30 - 1)) lane pair whose lexicographic order is the
+// numeric order. Bit c of `wide_mask` says logical column c is a pair.
+// All comparisons are signed int32, as in the reference.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace repro {
+
+// Rows of one row block: the unit of the float-sum order contract (the
+// reference's DEVICE_BLOCK_N). A block's partial sum is reduced inside one
+// CTA; partials are folded across blocks in ascending block order.
+constexpr int kBlockRows = 8192;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// Queries whose bounds one CTA holds in shared memory.
+constexpr int kQueryChunk = 128;
+// Dynamic shared memory one CTA may take (the card allows 227 KB).
+constexpr size_t kSmemBudget = 200 * 1024;
+
+// Residual predicate: per logical column, value in [lo, hi) (hi
+// exclusive), wide columns compared lexicographically over their lane
+// pair. Lane l of row i is tk[l * ts + i]: `tk` is either a shared-memory
+// tile (ts = tile rows) or the resident tensor itself (ts = n_pad).
+template <typename I>
+__device__ __forceinline__ bool residual_ok(const int32_t* tk, I ts, I i,
+                                            const int32_t* lo, const int32_t* hi,
+                                            int n_cols, uint32_t wide_mask) {
+  int lane = 0;
+  for (int c = 0; c < n_cols; ++c) {
+    const int32_t k = tk[lane * ts + i];
+    if ((wide_mask >> c) & 1u) {
+      const int32_t kl = tk[(lane + 1) * ts + i];
+      if (!(k > lo[lane] || (k == lo[lane] && kl >= lo[lane + 1]))) return false;
+      if (!(k < hi[lane] || (k == hi[lane] && kl < hi[lane + 1]))) return false;
+      lane += 2;
+    } else {
+      if (k < lo[lane] || k >= hi[lane]) return false;
+      lane += 1;
+    }
+  }
+  return true;
+}
+
+// key tuple >= bound tuple, lexicographic over n lanes (MSB lane first).
+template <typename I>
+__device__ __forceinline__ bool lex_ge(const int32_t* tk, I ts, I i,
+                                       const int32_t* b, int n) {
+  for (int l = 0; l < n; ++l) {
+    const int32_t k = tk[l * ts + i];
+    if (k != b[l]) return k > b[l];
+  }
+  return true;
+}
+
+// key tuple <= bound tuple, lexicographic over n lanes.
+template <typename I>
+__device__ __forceinline__ bool lex_le(const int32_t* tk, I ts, I i,
+                                       const int32_t* b, int n) {
+  for (int l = 0; l < n; ++l) {
+    const int32_t k = tk[l * ts + i];
+    if (k != b[l]) return k < b[l];
+  }
+  return true;
+}
+
+// Butterfly reduction over a full warp; the shuffle pattern is fixed, so
+// the float result does not depend on timing.
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Rows of one shared-memory key tile: the largest power of two in
+// [kThreads, 2048] whose tile fits the budget next to `fixed` bytes, or 0.
+inline int pick_tile(size_t fixed, int words_per_row) {
+  for (int tile = 2048; tile >= kThreads; tile >>= 1) {
+    if (fixed + (size_t)tile * words_per_row * 4 <= kSmemBudget) return tile;
+  }
+  return 0;
+}
+
+}  // namespace repro

@@ -1,0 +1,56 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version, and the glue that feeds them (``ops``).
+
+scan_agg_locate      — fused locate+scan (csrc/scan_locate.cu)
+select_compact       — select row-index compaction (csrc/select_compact.cu)
+merge_run_positions  — merge ranks of a resident run stack (csrc/merge_rank.cu)
+ecdf_hist            — histogram for the ECDF refresh (csrc/ecdf_hist.cu)
+
+A wrapper runs its kernel on CUDA tensors and its plain version on CPU
+tensors, and counts its kernel launches in ``<wrapper>.launches``.
+"""
+
+from .ecdf_hist import ecdf_hist, ecdf_hist_plain
+from .merge_runs import merge_run_positions, merge_run_positions_plain
+from .ops import (
+    DEVICE_BLOCK_N,
+    build_device_state,
+    device_key_plan,
+    device_state_append,
+    merge_device_runs,
+    state_from_numpy,
+    table_execute_device_many,
+)
+from .slab_locate import (
+    scan_agg_locate,
+    scan_agg_locate_plain,
+    select_compact,
+    select_compact_plain,
+)
+
+#: Every kernel wrapper of the port, by the name reports use.
+KERNELS = {
+    "scan_agg_locate": scan_agg_locate,
+    "select_compact": select_compact,
+    "merge_run_positions": merge_run_positions,
+    "ecdf_hist": ecdf_hist,
+}
+
+__all__ = [
+    "DEVICE_BLOCK_N",
+    "KERNELS",
+    "build_device_state",
+    "device_key_plan",
+    "device_state_append",
+    "ecdf_hist",
+    "ecdf_hist_plain",
+    "merge_device_runs",
+    "merge_run_positions",
+    "merge_run_positions_plain",
+    "scan_agg_locate",
+    "scan_agg_locate_plain",
+    "select_compact",
+    "select_compact_plain",
+    "state_from_numpy",
+    "table_execute_device_many",
+]

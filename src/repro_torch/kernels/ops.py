@@ -1,0 +1,419 @@
+"""Host and device glue of the device read and write paths.
+
+``build_device_state`` materializes a table's resident tensors, in the
+reference's exact layout (``repro/kernels/ops.py``): int32 key lanes
+``[K_pad, N_pad]`` (30-bit lanes; columns of 31–60 bits as a ``(v >> 30,
+v & mask)`` lane pair), a float32 value tile ``[V_pad, N_pad]`` with one
+row per value column plus a ones row, and ``N_pad`` a multiple of
+``DEVICE_BLOCK_N``. ``device_state_append`` extends it with a merged write
+run, ``merge_device_runs`` collapses the run stack on the device (merge
+ranks + one scatter per tensor), and ``table_execute_device_many`` serves
+a sum/count/select batch from it: one fused locate+scan launch, plus one
+select-compaction launch when the batch has selects with matches.
+``state_from_numpy`` turns a reference state (arrays as numpy) into the
+port's, so both implementations can be fed identical resident arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .merge_runs import merge_run_positions
+from .slab_locate import scan_agg_locate, select_compact
+
+__all__ = [
+    "DEVICE_BLOCK_N",
+    "MAX_DEVICE_COL_BITS",
+    "MAX_DEVICE_ROWS",
+    "WIDE_LANE_BITS",
+    "build_device_state",
+    "device_key_plan",
+    "device_query_operands",
+    "device_state_append",
+    "merge_device_runs",
+    "state_from_numpy",
+    "table_execute_device_many",
+]
+
+# A key lane is an int32; columns wider than this many bits are split
+# into (hi, lo) lane pairs compared lexicographically.
+WIDE_LANE_BITS = 30
+MAX_DEVICE_COL_BITS = 2 * WIDE_LANE_BITS
+_LANE_MASK = (1 << WIDE_LANE_BITS) - 1
+
+# Row-axis padding granularity of the resident tensors and the unit of the
+# kernels' float-sum order (8192-row block partials).
+DEVICE_BLOCK_N = 8192
+
+# The kernels count matches in int32 and address rows with int32 indices.
+MAX_DEVICE_ROWS = (1 << 31) - DEVICE_BLOCK_N
+
+
+def device_key_plan(table) -> tuple[int, ...]:
+    """Lane count (1 or 2) per layout column for the device path. Raises
+    a ``ValueError`` naming the column that exceeds the two-lane budget
+    (> 60 bits) — wider schemas are served by the numpy engine."""
+    parts = []
+    for c in table.layout:
+        bits = table.schema.bits[c]
+        if bits <= WIDE_LANE_BITS:
+            parts.append(1)
+        elif bits <= MAX_DEVICE_COL_BITS:
+            parts.append(2)
+        else:
+            raise ValueError(
+                f"device scan path: key column {c!r} needs {bits} bits, more "
+                f"than the {MAX_DEVICE_COL_BITS}-bit two-lane budget "
+                f"(2 × {WIDE_LANE_BITS}-bit int32 lanes); use "
+                "SortedTable.execute/execute_many (numpy) for this schema"
+            )
+    return tuple(parts)
+
+
+def _expand_key_cols(key_cols, layout, col_parts: tuple[int, ...], n: int) -> np.ndarray:
+    """int32[K_ex, n] key lanes in layout order: narrow columns as one
+    lane, wide columns as (value >> 30, value & mask) pairs whose
+    lexicographic order equals the numeric order."""
+    rows: list[np.ndarray] = []
+    for c, parts in zip(layout, col_parts):
+        v = np.asarray(key_cols[c], np.int64)
+        if parts == 1:
+            rows.append(v.astype(np.int32))
+        else:
+            rows.append((v >> WIDE_LANE_BITS).astype(np.int32))
+            rows.append((v & _LANE_MASK).astype(np.int32))
+    return np.stack(rows) if rows else np.zeros((0, n), np.int32)
+
+
+def _expand_bounds(bounds: np.ndarray, col_parts: tuple[int, ...]) -> tuple[np.ndarray, np.ndarray]:
+    """Split int64[Q, K, 2] per-column bounds into int32[Q, K_ex] lane
+    bounds. An exclusive upper bound splits the same way — comparing the
+    lane pair lexicographically against (hi >> 30, hi & mask) is exactly
+    ``value < hi``."""
+    los: list[np.ndarray] = []
+    his: list[np.ndarray] = []
+    for j, parts in enumerate(col_parts):
+        lo, hi = bounds[:, j, 0], bounds[:, j, 1]
+        if parts == 1:
+            los.append(lo.astype(np.int32))
+            his.append(hi.astype(np.int32))
+        else:
+            los.append((lo >> WIDE_LANE_BITS).astype(np.int32))
+            los.append((lo & _LANE_MASK).astype(np.int32))
+            his.append((hi >> WIDE_LANE_BITS).astype(np.int32))
+            his.append((hi & _LANE_MASK).astype(np.int32))
+    return np.stack(los, axis=1), np.stack(his, axis=1)
+
+
+def _check_device_rows(n: int) -> None:
+    if n >= MAX_DEVICE_ROWS:
+        raise ValueError(
+            f"device scan path: {n} rows exceeds the int32 row-index/"
+            f"count budget ({MAX_DEVICE_ROWS}); use the numpy engine "
+            "for tables this large"
+        )
+
+
+def _capacity(n: int) -> int:
+    return -(-max(n, 1) // DEVICE_BLOCK_N) * DEVICE_BLOCK_N
+
+
+def build_device_state(table, value_cols=None, *, device) -> dict:
+    """Materialize a table's resident tensors on ``device``: expanded
+    int32 key lanes and a float32 value tile (one row per value column + a
+    ones row for counts), padded to 8 lanes/rows and to a whole number of
+    8192-row blocks. A fresh build holds one sorted run (``n_runs == 1``,
+    device row order == host row order, ``row_map is None``)."""
+    col_parts = device_key_plan(table)
+    n = len(table)
+    _check_device_rows(n)
+    n_pad = _capacity(n)
+    keys = _expand_key_cols(table.key_cols, table.layout, col_parts, n)
+    k_ex = keys.shape[0]
+    k_pad = max(8, -(-k_ex // 8) * 8)
+    keys_p = np.zeros((k_pad, n_pad), np.int32)
+    keys_p[:k_ex, :n] = keys
+    if value_cols is None:
+        vnames = list(table.value_cols)
+    else:
+        wanted = set(value_cols)
+        vnames = [c for c in table.value_cols if c in wanted]
+    n_value_rows = len(vnames) + 1  # + ones row
+    v_pad = max(8, -(-n_value_rows // 8) * 8)
+    tile = np.zeros((v_pad, n_pad), np.float32)
+    for i, c in enumerate(vnames):
+        tile[i, :n] = np.asarray(table.value_cols[c], np.float32)
+    tile[len(vnames), :n] = 1.0  # padded rows stay 0 and are window-masked
+    return {
+        "device": torch.device(device),
+        "col_parts": col_parts,
+        "keys": torch.from_numpy(keys_p).to(device),
+        "values_tile": torch.from_numpy(tile).to(device),
+        "value_rows": {c: i for i, c in enumerate(vnames)},
+        "ones_row": len(vnames),
+        "n_value_rows": n_value_rows,
+        "n_rows": n,
+        "n_runs": 1,
+        # start offset of each resident run (run 0 = the sorted base)
+        "run_starts": (0,),
+        # device row -> host row translation for "select"; None == identity
+        "row_map": None,
+        # rows written into the tensors' shared storage (see append)
+        "_written": [n],
+    }
+
+
+def state_from_numpy(state: dict, device) -> dict:
+    """The port's state from a reference device state whose ``keys`` and
+    ``values_tile`` were converted to numpy: the same resident arrays as
+    tensors on ``device`` (host bookkeeping copied as is)."""
+    new = {k: v for k, v in state.items() if k not in ("keys", "values_tile")}
+    new["device"] = torch.device(device)
+    # copies: appends write into the port's tensors in place, and a CPU
+    # tensor made with from_numpy would share the reference's buffer
+    new["keys"] = torch.tensor(np.asarray(state["keys"], np.int32), device=device)
+    new["values_tile"] = torch.tensor(
+        np.asarray(state["values_tile"], np.float32), device=device
+    )
+    new["col_parts"] = tuple(state["col_parts"])
+    new["run_starts"] = tuple(state.get("run_starts", (0,)))
+    new["n_runs"] = state.get("n_runs", 1)
+    if state.get("row_map") is not None:
+        new["row_map"] = np.asarray(state["row_map"], np.int64)
+    new["_written"] = [state["n_rows"]]
+    return new
+
+
+def device_state_append(state, table, run_key_cols, run_value_cols, positions) -> dict:
+    """Extend a resident state with a merged write run (LSM append): the
+    run's rows land right after the existing rows, and ``row_map``
+    translates device row order back to host (merged) row order for
+    "select". ``table`` is the *merged* table (for layout/schema),
+    ``run_key_cols``/``run_value_cols`` the run sorted in the table's
+    layout, ``positions`` its ``np.searchsorted`` merge positions into the
+    previous packed column. Returns a new state dict.
+
+    Where the reference writes the run with ``dynamic_update_slice`` into
+    a fresh array, this writes it in place into the tensors' padding
+    (slice assignment) when it fits and this state is the latest writer
+    of that storage; the input state stays valid, since its reads never
+    pass its own ``n_rows``. Otherwise — the run outgrows the capacity, or
+    an older state is appended to a second time — the rows are copied
+    into new tensors of the reference's capacity first."""
+    col_parts = state["col_parts"]
+    positions = np.asarray(positions, np.int64)
+    m = int(positions.shape[0])
+    if m == 0:
+        # an empty run must not cost a run (it would push the table off
+        # the single-run order for no rows at all)
+        return dict(state)
+    n_old = state["n_rows"]
+    n_new = n_old + m
+    _check_device_rows(n_new)
+    keys = state["keys"]
+    tile = state["values_tile"]
+    cap = keys.shape[1]
+    written = state["_written"]
+    if n_new > cap or written[0] != n_old:
+        new_cap = max(cap, _capacity(n_new))
+        grown_keys = torch.zeros((keys.shape[0], new_cap), dtype=keys.dtype, device=keys.device)
+        grown_tile = torch.zeros((tile.shape[0], new_cap), dtype=tile.dtype, device=tile.device)
+        grown_keys[:, :n_old] = keys[:, :n_old]
+        grown_tile[:, :n_old] = tile[:, :n_old]
+        keys, tile = grown_keys, grown_tile
+        written = [n_old]
+    run_lanes = _expand_key_cols(run_key_cols, table.layout, col_parts, m)
+    k_block = np.zeros((keys.shape[0], m), np.int32)
+    k_block[: run_lanes.shape[0]] = run_lanes
+    v_block = np.zeros((tile.shape[0], m), np.float32)
+    for c, i in state["value_rows"].items():
+        v_block[i] = np.asarray(run_value_cols[c], np.float32)
+    v_block[state["ones_row"]] = 1.0
+    keys[:, n_old:n_new] = torch.from_numpy(k_block).to(keys.device)
+    tile[:, n_old:n_new] = torch.from_numpy(v_block).to(tile.device)
+    written[0] = n_new
+    new = dict(state)
+    new.update(keys=keys, values_tile=tile, n_rows=n_new, _written=written)
+    if n_old == 0:
+        # appending to an empty base: the sorted run IS the base run
+        new.update(n_runs=1, run_starts=(0,), row_map=None)
+        return new
+    # host index of old row i after the merge: i + |{j : positions[j] <= i}|;
+    # run row j (sorted order) lands at positions[j] + j (np.insert layout)
+    old_to_merged = np.arange(n_old, dtype=np.int64) + np.searchsorted(
+        positions, np.arange(n_old, dtype=np.int64), side="right"
+    )
+    rm = state["row_map"]
+    base = old_to_merged if rm is None else old_to_merged[rm]
+    row_map = np.concatenate([base, positions + np.arange(m, dtype=np.int64)])
+    new.update(
+        n_runs=state.get("n_runs", 1) + 1,
+        run_starts=tuple(state.get("run_starts", (0,))) + (n_old,),
+        row_map=row_map,
+    )
+    return new
+
+
+def merge_device_runs(state) -> dict:
+    """Collapse a state's appended runs into one sorted run on the device:
+    the merge-rank kernel gives every row its merged position and one
+    ``index_copy_`` per resident tensor reorders keys and value tile (the
+    reference's ``.at[:, pos].set`` scatter). The tie rule equals the host
+    ``merge_run`` order, so afterwards device row order == host row order:
+    ``row_map`` collapses to ``None`` and ``n_runs`` to 1. Returns a new
+    state dict; the input state is untouched."""
+    if state.get("n_runs", 1) <= 1:
+        return dict(state)
+    n = state["n_rows"]
+    pos = merge_run_positions(
+        state["keys"], state["run_starts"], n, n_lanes=sum(state["col_parts"])
+    )
+    keys = state["keys"]
+    tile = state["values_tile"]
+    merged_keys = torch.zeros_like(keys).index_copy_(1, pos, keys[:, :n])
+    merged_tile = torch.zeros_like(tile).index_copy_(1, pos, tile[:, :n])
+    new = dict(state)
+    new.update(
+        keys=merged_keys,
+        values_tile=merged_tile,
+        n_runs=1,
+        run_starts=(0,),
+        row_map=None,
+        _written=[n],
+    )
+    return new
+
+
+def _device_query_bounds(table, queries, col_parts, n_rows):
+    """Host-side O(Q·K) operand prep for the read kernels: the residual
+    per-lane bounds (exclusive hi), the slab key lane bounds (inclusive
+    hi) and the per-query [start, stop) row windows. Empty queries are
+    encoded as an impossible slab key (hi lanes = −1) and a (0, 0) window.
+    Raises exactly where the host slab walk raises."""
+    from ..core.table import _slab_col_bounds
+
+    names = list(table.layout)
+    los, his, nonempty = _slab_col_bounds(queries, names, table.schema)
+    slab_lo, slab_hi = _expand_bounds(np.stack([los, his], axis=2), col_parts)
+    slab_lo[~nonempty] = 0
+    slab_hi[~nonempty] = -1
+    bounds = np.array(
+        [[q.filter_bounds(table.schema, c) for c in names] for q in queries],
+        np.int64,
+    )  # (Q, K, 2) — lo inclusive, hi exclusive
+    res_lo, res_hi = _expand_bounds(bounds, col_parts)
+    limits = np.zeros((len(queries), 2), np.int64)
+    limits[:, 1] = np.where(nonempty, n_rows, 0)
+    return res_lo, res_hi, slab_lo, slab_hi, limits
+
+
+def device_query_operands(table, queries) -> dict:
+    """The read kernels' operands for a query batch on a resident table,
+    as int32 tensors on its device (one host→device copy for all):
+    ``res_lo``/``res_hi``/``slab_lo``/``slab_hi`` ``[Q, K_ex]``, ``limits``
+    ``[Q, 2]`` and the value-row selector ``sel`` ``[Q]`` (the ones row
+    for counts and selects)."""
+    state = table._device
+    value_rows: dict[str, int] = state["value_rows"]
+    for q in queries:
+        if q.agg not in ("sum", "count", "select"):
+            raise ValueError(
+                f"device path supports sum/count/select aggs, got {q.agg!r}"
+            )
+        if q.agg == "sum":
+            if q.value_col is None:
+                raise ValueError("sum aggregation requires value_col")
+            if q.value_col not in value_rows:
+                raise KeyError(q.value_col)
+    bounds = _device_query_bounds(table, queries, state["col_parts"], state["n_rows"])
+    sel = np.array(
+        [value_rows[q.value_col] if q.agg == "sum" else state["ones_row"] for q in queries],
+        np.int32,
+    )
+    arrays = [*bounds, sel]
+    flat = np.concatenate([np.ascontiguousarray(a, np.int32).ravel() for a in arrays])
+    t = torch.from_numpy(flat).to(state["device"])
+    out, off = {}, 0
+    for name, a in zip(("res_lo", "res_hi", "slab_lo", "slab_hi", "limits", "sel"), arrays):
+        out[name] = t[off : off + a.size].view(a.shape)
+        off += a.size
+    return out
+
+
+def table_execute_device_many(table, queries, *, trace=None) -> list:
+    """Serve a sum/count/select batch from a table's resident tensors: one
+    fused locate+scan launch computes every query's aggregate, matched
+    count and slab row count (``rows_scanned``), and — only when the batch
+    contains selects with matches — one compaction launch emits the
+    matched row indices, sized by the first launch's counts. Returns
+    ``list[ScanResult]`` in batch order: counts, rows and indices equal to
+    the numpy engine's, sums to float32 accumulation. On appended run
+    stacks ``row_map`` translates select indices to host row order.
+
+    ``trace`` (an open span, or None) wraps each launch wall, result fetch
+    included, as ``kernel.scan_launch`` / ``kernel.select_compact``."""
+    from ..core.table import ScanResult
+
+    queries = list(queries)
+    if not queries:
+        return []
+    state = getattr(table, "_device", None)
+    if state is None:
+        raise ValueError("table_execute_device_many needs a device-resident table")
+    col_parts = state["col_parts"]
+    d = device_query_operands(table, queries)
+    ks = (
+        trace.child(
+            "kernel.scan_launch", queries=len(queries), n_rows=int(state["n_rows"]),
+            fused=True,
+        )
+        if trace is not None
+        else None
+    )
+    sums, matched, slab_rows = scan_agg_locate(
+        state["keys"], state["values_tile"], d["res_lo"], d["res_hi"], d["slab_lo"],
+        d["slab_hi"], d["limits"], d["sel"], col_parts=col_parts,
+        n_vals=state["n_value_rows"],
+    )
+    sums = sums.cpu().numpy()
+    matched = matched.cpu().numpy().astype(np.int64)
+    slab_rows = slab_rows.cpu().numpy().astype(np.int64)
+    if ks is not None:
+        ks.end()
+
+    selected: dict[int, np.ndarray] = {}
+    sel_idx = [i for i, q in enumerate(queries) if q.agg == "select"]
+    for i in sel_idx:
+        if matched[i] == 0:
+            selected[i] = np.empty(0, np.int64)
+    sel_idx = [i for i in sel_idx if matched[i] > 0]
+    if sel_idx:
+        kc = (
+            trace.child("kernel.select_compact", queries=len(sel_idx))
+            if trace is not None
+            else None
+        )
+        idx = torch.tensor(sel_idx, dtype=torch.int64, device=state["device"])
+        flat = select_compact(
+            state["keys"], d["res_lo"][idx], d["res_hi"][idx], d["limits"][idx],
+            matched[sel_idx], col_parts=col_parts,
+        ).cpu().numpy().astype(np.int64)
+        rm = state["row_map"]
+        off = 0
+        for i in sel_idx:
+            rows = flat[off : off + int(matched[i])]
+            off += int(matched[i])
+            if rm is not None:
+                # appended runs: device row order -> host (merged) order;
+                # numpy emits ascending indices
+                rows = np.sort(rm[rows])
+            selected[i] = rows
+        if kc is not None:
+            kc.end()
+
+    out = []
+    for i, q in enumerate(queries):
+        value = float(sums[i]) if q.agg == "sum" else float(matched[i])
+        out.append(ScanResult(value, int(slab_rows[i]), int(matched[i]), selected.get(i)))
+    return out

@@ -1,0 +1,298 @@
+"""Device read-path kernels: the fused locate+scan and select compaction.
+
+``scan_agg_locate`` — per query, one pass over the resident key lanes and
+value tile gives the float32 sum of the selected value row over rows
+passing the residual predicate, the int32 matched count, and the int32
+count of rows whose key tuple lies inside the query's slab (the rows a
+sorted scan would stream, ``rows_scanned``). CUDA tensors run
+``csrc/scan_locate.cu``; CPU tensors run :func:`scan_agg_locate_plain`.
+
+``select_compact`` — per query, the ascending row indices that pass the
+residual predicate inside its window, as one flat int32 array sized by the
+fused scan's match counts. CUDA tensors run ``csrc/select_compact.cu``;
+CPU tensors run :func:`select_compact_plain`.
+
+Both take the reference's operand layout (``repro/kernels/slab_locate.py``):
+key lanes int32 ``[K_pad, N]``, value tile float32 ``[V_pad, N]``, per-query
+lane bounds int32 ``[Q, K_ex]`` with ``K_ex = sum(col_parts)`` (residual
+``hi`` exclusive, slab ``hi`` inclusive), row windows int32 ``[Q, 2]`` and a
+value-row selector int32 ``[Q]``. A query with a ``(0, 0)`` window
+contributes nothing. The float sums follow the parity contract in
+``csrc/scan_locate.cu``: deterministic, 8192-row block partials folded in
+ascending block order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _build
+
+__all__ = [
+    "BLOCK_ROWS",
+    "scan_agg_locate",
+    "scan_agg_locate_plain",
+    "select_compact",
+    "select_compact_plain",
+]
+
+#: Rows per block of the kernels' sum-order contract (``DEVICE_BLOCK_N``).
+BLOCK_ROWS = 8192
+
+_P, _I, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
+_SCAN_SIG = {
+    "scan_locate_launch": [
+        _P, _I64, _I, _I, _U32, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P,
+    ]
+}
+_SELECT_SIG = {
+    "select_compact_launch": [
+        _P, _I64, _I, _I, _U32, _P, _P, _P, _I, _P, _I, _P, _P, _P,
+    ]
+}
+
+
+def _col_parts(col_parts, n_lanes_bound: int) -> tuple[int, ...]:
+    col_parts = tuple(int(p) for p in col_parts)
+    if sum(col_parts) != n_lanes_bound or not all(p in (1, 2) for p in col_parts):
+        raise ValueError(
+            f"col_parts {col_parts} does not tile {n_lanes_bound} bound lanes"
+        )
+    if len(col_parts) > 32:
+        raise ValueError(f"{len(col_parts)} key columns: at most 32 are supported")
+    return col_parts
+
+
+def _wide_mask(col_parts: tuple[int, ...]) -> int:
+    return sum(1 << c for c, p in enumerate(col_parts) if p == 2)
+
+
+def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim}-D {dtype}, got {t.dim()}-D {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, keys on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _lex_masks(keys, lo, hi, n_lanes):
+    """(Q, N) ``key >= lo`` and ``key <= hi`` masks, tuple-lexicographic
+    over the first ``n_lanes`` lanes (MSB lane first)."""
+    ge = le = None
+    for lane in reversed(range(n_lanes)):
+        k = keys[lane][None, :]
+        bl = lo[:, lane : lane + 1]
+        bh = hi[:, lane : lane + 1]
+        ge = (k >= bl) if ge is None else (k > bl) | ((k == bl) & ge)
+        le = (k <= bh) if le is None else (k < bh) | ((k == bh) & le)
+    return ge, le
+
+
+def _residual_mask(keys, lo, hi, col_parts, base):
+    """(Q, N) residual predicate ANDed onto ``base``: per logical column,
+    value in [lo, hi), wide columns compared over their lane pair."""
+    ok = base
+    lane = 0
+    for parts in col_parts:
+        k = keys[lane][None, :]
+        if parts == 1:
+            ok = ok & (k >= lo[:, lane : lane + 1]) & (k < hi[:, lane : lane + 1])
+        else:
+            kl = keys[lane + 1][None, :]
+            bh, bl = lo[:, lane : lane + 1], lo[:, lane + 1 : lane + 2]
+            ok = ok & ((k > bh) | ((k == bh) & (kl >= bl)))
+            bh, bl = hi[:, lane : lane + 1], hi[:, lane + 1 : lane + 2]
+            ok = ok & ((k < bh) | ((k == bh) & (kl < bl)))
+        lane += parts
+    return ok
+
+
+def _window(limits, n):
+    ridx = torch.arange(n, dtype=torch.int32, device=limits.device)[None, :]
+    return (ridx >= limits[:, 0:1]) & (ridx < limits[:, 1:2])
+
+
+# plain versions evaluate (chunk, N) masks; the chunk bounds their memory
+_PLAIN_Q_CHUNK = 16
+
+
+def scan_agg_locate_plain(
+    keys, values, res_lo, res_hi, slab_lo, slab_hi, limits, value_sel, *, col_parts
+):
+    """Plain PyTorch version of :func:`scan_agg_locate`: whole-array masks
+    per chunk of queries. Returns ``(sums f32[Q], matched i32[Q],
+    slab_rows i32[Q])``."""
+    col_parts = _col_parts(col_parts, res_lo.shape[1])
+    n_lanes = sum(col_parts)
+    n = keys.shape[1]
+    q = res_lo.shape[0]
+    sums = torch.zeros(q, dtype=torch.float32, device=keys.device)
+    matched = torch.zeros(q, dtype=torch.int32, device=keys.device)
+    slab_rows = torch.zeros(q, dtype=torch.int32, device=keys.device)
+    n_vals = values.shape[0]
+    for s in range(0, q, _PLAIN_Q_CHUNK):
+        e = min(q, s + _PLAIN_Q_CHUNK)
+        valid = _window(limits[s:e], n)
+        ge, le = _lex_masks(keys, slab_lo[s:e], slab_hi[s:e], n_lanes)
+        match = _residual_mask(keys, res_lo[s:e], res_hi[s:e], col_parts, valid)
+        sel = value_sel[s:e].long()
+        in_range = (sel >= 0) & (sel < n_vals)
+        vq = values[sel.clamp(0, n_vals - 1)]
+        vq = torch.where(match & in_range[:, None], vq, torch.zeros((), dtype=vq.dtype, device=vq.device))
+        sums[s:e] = vq.sum(dim=1)
+        matched[s:e] = match.sum(dim=1, dtype=torch.int32)
+        slab_rows[s:e] = (valid & ge & le).sum(dim=1, dtype=torch.int32)
+    return sums, matched, slab_rows
+
+
+def scan_agg_locate(
+    keys: torch.Tensor,  # int32[K_pad, N] key lanes
+    values: torch.Tensor,  # float32[V_pad, N] value tile
+    res_lo: torch.Tensor,  # int32[Q, K_ex] residual bounds, inclusive
+    res_hi: torch.Tensor,  # int32[Q, K_ex] residual bounds, EXCLUSIVE
+    slab_lo: torch.Tensor,  # int32[Q, K_ex] slab key, inclusive
+    slab_hi: torch.Tensor,  # int32[Q, K_ex] slab key, INCLUSIVE
+    limits: torch.Tensor,  # int32[Q, 2] row window
+    value_sel: torch.Tensor,  # int32[Q] value-row selector
+    *,
+    col_parts,
+    n_vals: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused locate+scan: ``(sum f32[Q], matched i32[Q], slab_rows
+    i32[Q])``. ``n_vals`` limits the value rows the kernel stages (the
+    resident tile's live rows; default all); a selector outside
+    ``[0, n_vals)`` sums nothing."""
+    device = keys.device
+    _check("keys", keys, torch.int32, 2, device)
+    _check("values", values, torch.float32, 2, device)
+    for name, t in (("res_lo", res_lo), ("res_hi", res_hi), ("slab_lo", slab_lo),
+                    ("slab_hi", slab_hi), ("limits", limits)):
+        _check(name, t, torch.int32, 2, device)
+    _check("value_sel", value_sel, torch.int32, 1, device)
+    q, k_ex = res_lo.shape
+    col_parts = _col_parts(col_parts, k_ex)
+    if values.shape[1] != keys.shape[1]:
+        raise ValueError(f"values carry {values.shape[1]} rows, keys {keys.shape[1]}")
+    if k_ex > keys.shape[0]:
+        raise ValueError(f"bounds cover {k_ex} lanes but keys carry {keys.shape[0]}")
+    if any(t.shape != (q, k_ex) for t in (res_hi, slab_lo, slab_hi)):
+        raise ValueError("bound arrays must share one [Q, K_ex] shape")
+    if limits.shape != (q, 2) or value_sel.shape != (q,):
+        raise ValueError("limits must be [Q, 2] and value_sel [Q]")
+    n_vals = values.shape[0] if n_vals is None else int(n_vals)
+    if not 0 < n_vals <= values.shape[0]:
+        raise ValueError(f"n_vals {n_vals} out of range for {values.shape[0]} rows")
+    if device.type == "cpu":
+        return scan_agg_locate_plain(
+            keys, values[:n_vals], res_lo, res_hi, slab_lo, slab_hi, limits,
+            value_sel, col_parts=col_parts,
+        )
+    if device.type != "cuda":
+        raise ValueError(f"scan_agg_locate runs on cuda or cpu tensors, got {device}")
+    n_pad = keys.shape[1]
+    n_blocks = -(-n_pad // BLOCK_ROWS)
+    out_s = torch.empty(q, dtype=torch.float32, device=device)
+    out_m = torch.empty(q, dtype=torch.int32, device=device)
+    out_c = torch.empty(q, dtype=torch.int32, device=device)
+    if q == 0 or n_blocks == 0:
+        return out_s.zero_(), out_m.zero_(), out_c.zero_()
+    part_s = torch.empty((n_blocks, q), dtype=torch.float32, device=device)
+    part_m = torch.empty((n_blocks, q), dtype=torch.int32, device=device)
+    part_c = torch.empty((n_blocks, q), dtype=torch.int32, device=device)
+    lib = _build.load("scan_locate", _SCAN_SIG)
+    code = lib.scan_locate_launch(
+        keys.data_ptr(), n_pad, k_ex, len(col_parts), _wide_mask(col_parts),
+        values.data_ptr(), n_vals, res_lo.data_ptr(), res_hi.data_ptr(),
+        slab_lo.data_ptr(), slab_hi.data_ptr(), limits.data_ptr(),
+        value_sel.data_ptr(), q, n_blocks, part_s.data_ptr(), part_m.data_ptr(),
+        part_c.data_ptr(), out_s.data_ptr(), out_m.data_ptr(), out_c.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(code, "scan_locate_launch")
+    scan_agg_locate.launches += 1
+    return out_s, out_m, out_c
+
+
+scan_agg_locate.launches = 0
+
+
+def select_compact_plain(keys, res_lo, res_hi, limits, counts, *, col_parts):
+    """Plain PyTorch version of :func:`select_compact`: per query, the
+    nonzero indices of its whole-array match mask."""
+    col_parts = _col_parts(col_parts, res_lo.shape[1])
+    counts = np.asarray(counts, np.int64)
+    n = keys.shape[1]
+    q = res_lo.shape[0]
+    chunks = []
+    for s in range(0, q, _PLAIN_Q_CHUNK):
+        e = min(q, s + _PLAIN_Q_CHUNK)
+        match = _residual_mask(keys, res_lo[s:e], res_hi[s:e], col_parts, _window(limits[s:e], n))
+        for j in range(e - s):
+            rows = torch.nonzero(match[j]).flatten().to(torch.int32)
+            if rows.numel() != counts[s + j]:
+                raise ValueError(
+                    f"query {s + j}: {rows.numel()} matches, counts say {counts[s + j]}"
+                )
+            chunks.append(rows)
+    if not chunks:
+        return torch.empty(0, dtype=torch.int32, device=keys.device)
+    return torch.cat(chunks)
+
+
+def select_compact(
+    keys: torch.Tensor,  # int32[K_pad, N] key lanes
+    res_lo: torch.Tensor,  # int32[Q, K_ex] residual bounds, inclusive
+    res_hi: torch.Tensor,  # int32[Q, K_ex] residual bounds, EXCLUSIVE
+    limits: torch.Tensor,  # int32[Q, 2] row window
+    counts,  # int64[Q] on the host: each query's match count
+    *,
+    col_parts,
+) -> torch.Tensor:
+    """int32[sum(counts)]: query ``j``'s ascending matched row indices at
+    ``[offsets[j], offsets[j + 1])``, ``offsets`` the exclusive prefix sum
+    of ``counts`` (the fused scan's ``matched``). The counts size the
+    output on the host; the kernel never writes past a query's slice."""
+    device = keys.device
+    _check("keys", keys, torch.int32, 2, device)
+    for name, t in (("res_lo", res_lo), ("res_hi", res_hi), ("limits", limits)):
+        _check(name, t, torch.int32, 2, device)
+    q, k_ex = res_lo.shape
+    col_parts = _col_parts(col_parts, k_ex)
+    counts = np.asarray(counts, np.int64)
+    if res_hi.shape != (q, k_ex) or limits.shape != (q, 2) or counts.shape != (q,):
+        raise ValueError("res_hi must be [Q, K_ex], limits [Q, 2], counts [Q]")
+    if k_ex > keys.shape[0]:
+        raise ValueError(f"bounds cover {k_ex} lanes but keys carry {keys.shape[0]}")
+    if device.type == "cpu":
+        return select_compact_plain(
+            keys, res_lo, res_hi, limits, counts, col_parts=col_parts
+        )
+    if device.type != "cuda":
+        raise ValueError(f"select_compact runs on cuda or cpu tensors, got {device}")
+    offsets = np.zeros(q + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    out = torch.empty(int(offsets[-1]), dtype=torch.int32, device=device)
+    n_pad = keys.shape[1]
+    n_blocks = -(-n_pad // BLOCK_ROWS)
+    if q == 0 or n_blocks == 0 or out.numel() == 0:
+        return out
+    offsets_t = torch.from_numpy(offsets).to(device)
+    base = torch.empty((n_blocks, q), dtype=torch.int64, device=device)
+    lib = _build.load("select_compact", _SELECT_SIG)
+    code = lib.select_compact_launch(
+        keys.data_ptr(), n_pad, k_ex, len(col_parts), _wide_mask(col_parts),
+        res_lo.data_ptr(), res_hi.data_ptr(), limits.data_ptr(), q,
+        offsets_t.data_ptr(), n_blocks, base.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(code, "select_compact_launch")
+    select_compact.launches += 1
+    return out
+
+
+select_compact.launches = 0

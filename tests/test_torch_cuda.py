@@ -1,0 +1,175 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every case here needs an NVIDIA GPU and skips without one. The file
+imports neither JAX nor the reference package, so it runs where only
+PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Counts, indices, permutations and histograms must equal the plain
+versions' on the same CUDA tensors; float32 sums agree within rtol 1e-5 /
+atol 1e-3 (the kernels fold 8192-row block partials in another order than
+the plain version's whole-row sums).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as T
+import repro_torch.kernels as K
+from repro_torch.core.storage.memtable import sort_run
+from repro_torch.core.tpch import generate_orders, orders_schema
+from repro_torch.kernels import ops
+from repro_torch.kernels.ecdf_hist import ecdf_hist, ecdf_hist_plain
+from repro_torch.kernels.merge_runs import merge_run_positions, merge_run_positions_plain
+from repro_torch.kernels.slab_locate import (
+    scan_agg_locate,
+    scan_agg_locate_plain,
+    select_compact,
+    select_compact_plain,
+)
+
+SCHEMAS = {
+    "narrow": ({"a": 7, "b": 9, "c": 5}, ("b", "a", "c")),
+    "wide": ({"a": 6, "w": 45, "c": 5}, ("a", "w", "c")),
+}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _table(schema, n, seed, device):
+    bits, layout = SCHEMAS[schema]
+    rng = np.random.default_rng(seed)
+    kc = {c: rng.integers(0, 1 << b, n, dtype=np.int64) for c, b in bits.items()}
+    vc = {"v": rng.uniform(-10.0, 100.0, n), "u": rng.integers(0, 7, n).astype(np.float64)}
+    t = T.SortedTable.from_columns(kc, vc, layout, T.KeySchema(dict(bits)))
+    return t.place_on_device(device), kc
+
+
+def _queries(bits, n_q, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_q):
+        f = {}
+        for c, b in bits.items():
+            top = 1 << b
+            kind = rng.integers(0, 4)
+            if kind == 0:
+                f[c] = T.Eq(int(rng.integers(0, top)))
+            elif kind == 1:
+                lo = int(rng.integers(0, top))
+                f[c] = T.Range(lo, int(rng.integers(lo, top + 1)))
+            elif kind == 2 and i % 7 == 3:
+                lo = int(rng.integers(0, top))
+                f[c] = T.Range(lo, lo)
+        agg = ("sum", "count", "select")[i % 3]
+        out.append(T.Query(filters=f, agg=agg, value_col=("v", "u")[i % 2] if agg == "sum" else None))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schema", ["narrow", "wide"])
+def test_scan_and_select_match_plain(cuda_device, schema):
+    table, _ = _table(schema, 40_000, 13, cuda_device)
+    st = table._device
+    d = ops.device_query_operands(table, _queries(SCHEMAS[schema][0], 300, 14))
+    args = (d["res_lo"], d["res_hi"], d["slab_lo"], d["slab_hi"], d["limits"], d["sel"])
+    n_vals, cp = st["n_value_rows"], st["col_parts"]
+    launches = K.KERNELS["scan_agg_locate"].launches
+    got = scan_agg_locate(st["keys"], st["values_tile"], *args, col_parts=cp, n_vals=n_vals)
+    assert K.KERNELS["scan_agg_locate"].launches == launches + 1
+    want = scan_agg_locate_plain(st["keys"], st["values_tile"][:n_vals], *args, col_parts=cp)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
+    again = scan_agg_locate(st["keys"], st["values_tile"], *args, col_parts=cp, n_vals=n_vals)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # deterministic sums
+    matched = got[1].cpu().numpy()
+    s_args = (d["res_lo"], d["res_hi"], d["limits"])
+    assert torch.equal(
+        select_compact(st["keys"], *s_args, matched, col_parts=cp),
+        select_compact_plain(st["keys"], *s_args, matched, col_parts=cp),
+    )
+    # arbitrary row windows, starting and ending inside blocks and tiles
+    rng = np.random.default_rng(17)
+    lim = np.sort(rng.integers(0, st["n_rows"] + 1, (len(matched), 2)), axis=1).astype(np.int32)
+    lim_t = torch.from_numpy(lim).to(cuda_device)
+    args = args[:4] + (lim_t, d["sel"])
+    got = scan_agg_locate(st["keys"], st["values_tile"], *args, col_parts=cp, n_vals=n_vals)
+    want = scan_agg_locate_plain(st["keys"], st["values_tile"][:n_vals], *args, col_parts=cp)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
+    matched = got[1].cpu().numpy()
+    s_args = (d["res_lo"], d["res_hi"], lim_t)
+    assert torch.equal(
+        select_compact(st["keys"], *s_args, matched, col_parts=cp),
+        select_compact_plain(st["keys"], *s_args, matched, col_parts=cp),
+    )
+
+
+@pytest.mark.cuda
+def test_merge_and_hist_match_plain(cuda_device):
+    table, kc = _table("wide", 30_000, 15, cuda_device)
+    bits, _ = SCHEMAS["wide"]
+    rng = np.random.default_rng(16)
+    for step in range(3):
+        wk = {c: rng.integers(0, 1 << b, 2000, dtype=np.int64) for c, b in bits.items()}
+        wk["a"][:500] = kc["a"][:500]
+        wv = {"v": rng.uniform(0, 1, 2000), "u": rng.uniform(0, 1, 2000)}
+        table = table.merge_run(sort_run(wk, wv, table.layout, table.schema))
+    st = table._device
+    lanes = sum(st["col_parts"])
+    got = merge_run_positions(st["keys"], st["run_starts"], st["n_rows"], n_lanes=lanes)
+    want = merge_run_positions_plain(st["keys"], st["run_starts"], st["n_rows"], n_lanes=lanes)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(), st["row_map"])
+    col = torch.from_numpy(kc["w"].astype(np.int64) % 5000 - 3).to(torch.int32).to(cuda_device)
+    for n_bins, width in ((64, 1), (4096, 3)):
+        assert torch.equal(
+            ecdf_hist(col, n_bins=n_bins, bin_width=width),
+            ecdf_hist_plain(col, n_bins=n_bins, bin_width=width),
+        )
+
+
+@pytest.mark.cuda
+def test_engine_on_the_card_matches_the_cpu_engine(cuda_device):
+    """The same column family, reads and write drip (with a compaction)
+    on the card and on the CPU: equal answers and resident states."""
+    kc, vc = generate_orders(0.02, seed=3)
+    engines = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        eng = T.HREngine(n_nodes=6, device=dev)
+        eng.create_column_family(
+            "o", kc, vc, replication_factor=3,
+            layouts=[("clerk", "orderdate", "custkey"), ("custkey", "orderdate", "clerk"),
+                     ("orderdate", "clerk", "custkey")],
+            schema=orders_schema(), device_resident=True,
+        )
+        engines[dev.type] = eng
+    wl = T.tpch.q1_q2_workload(n_instances=96, n_rows=len(kc["custkey"]), seed=4)
+    qs = list(wl.queries[:48]) + [T.Query(filters=q.filters, agg="select") for q in wl.queries[48:]]
+    qs.append(T.Query(filters={"custkey": T.Range(0, 300)}, agg="select"))
+    kw, vw = generate_orders(0.002, seed=5)
+    for step in range(10):
+        for eng in engines.values():
+            sl = slice(step * 300, (step + 1) * 300)
+            eng.write("o", {c: v[sl] for c, v in kw.items()}, {c: v[sl] for c, v in vw.items()})
+        if step in (0, 9):
+            a, b = (engines[k].read_many("o", qs) for k in ("cuda", "cpu"))
+            for (ra, pa), (rb, pb) in zip(a, b):
+                assert pa.replica_id == pb.replica_id
+                assert (ra.rows_scanned, ra.rows_matched) == (rb.rows_scanned, rb.rows_matched)
+                np.testing.assert_allclose(ra.value, rb.value, rtol=1e-5, atol=1e-3)
+                if ra.selected is not None:
+                    np.testing.assert_array_equal(ra.selected, rb.selected)
+    assert engines["cuda"].stats["compactions"] == engines["cpu"].stats["compactions"] > 0
+    for r in engines["cuda"].column_families["o"].replicas:
+        ta = engines["cuda"]._table(engines["cuda"].column_families["o"], r)
+        tb = engines["cpu"]._table(engines["cpu"].column_families["o"], r)
+        assert torch.equal(ta._device["keys"].cpu(), tb._device["keys"])
+        assert torch.equal(ta._device["values_tile"].cpu(), tb._device["values_tile"])
