@@ -2,12 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives
-the port's main path at TPC-H scale factor 5 (7.5 M ``orders`` rows,
+the port's two read paths at TPC-H scale factor 5 (7.5 M ``orders`` rows,
 replication factor 3): CREATE a device-resident HR column family, serve
 ``read_many`` and ``read`` batches, write through commit log, memtable,
-flush and append, and compact the run stack on the device. Before that it
-holds every kernel of the path against its plain PyTorch version on the
-same CUDA tensors, at the path's shapes, and times both.
+flush and append, and compact the run stack on the device; then the same
+on a second column family with materialized per-slab views, whose
+eligible sums and counts are served from per-block partials. It holds
+every kernel of both paths against its plain PyTorch version on the same
+CUDA tensors, at the paths' shapes, and times both.
 
 Phases, each asserting (a failure exits non-zero and prints no result):
   1. setup      card name and power limit, kernel build
@@ -28,12 +30,33 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 formed (the launches read_many makes), each vs its plain
                 version: counts and indices equal, sums within rtol 1e-5 /
                 atol 1e-3; per-group times and bounds, summed per batch
+  7. views      CREATE "orders_v" on the same rows with views=True (same
+                layouts, every view verified), the same 4 batches, the
+                wide batch and scalar reads (most sums and counts served
+                by the views), the same 10 writes (the compaction rebuilds
+                every view, the 2 writes after it leave runs, so view reads
+                rescan boundary blocks across several run windows); every
+                answer against the brute-force oracle and every
+                view-served answer against the fused kernel on the same
+                replica table, bit for bit, before the writes, after the
+                compaction and after the last write
+  8. view_kernels  block_sums on a full SF 5 tile (whole and a flush's
+                tail) and boundary_block_sums on the pairs one fresh batch
+                forms, each vs its plain version; times, bounds, the
+                library yardstick; then the bit identity of view and fused
+                scan on a table whose schema shrinks the staging tile
+  9. breakdown  one fresh batch on each column family: the engine's spans
+                on the host clock, and a second under torch.profiler
 Every kernel wrapper's launch count is set to 0 just before phase 3 and
-read after phase 5; each kernel must have launched on the main path.
+read after phase 5, and again just before phase 7 and after it; each
+kernel must have launched on its path (the view kernels on phase 7's).
+The oracle is a brute-force pass over every generated row on the card
+(plain PyTorch masks and float64 sums); checks that launch kernels
+(verify_views, the fused comparisons) leave the launch counts untouched.
 
 The standard output ends with the kernels line, the per-phase wall times
-and per-layer numbers, the card's name and power limit, and
-``{"ok": true, "device": ...}``.
+and per-layer numbers, the views line, the card's name and power limit,
+and ``{"ok": true, "device": ...}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``--sf`` and ``--seed`` change the scale factor and the data seed).
@@ -82,7 +105,18 @@ KERNEL_INFO = {
         "src/repro_torch/csrc/ecdf_hist.cu",
         "src/repro/kernels/ecdf_hist.py:26",
     ),
+    "block_sums": (
+        "src/repro_torch/csrc/block_sums.cu",
+        "src/repro/kernels/block_agg.py:52",
+    ),
+    "boundary_block_sums": (
+        "src/repro_torch/csrc/block_sums.cu",
+        "src/repro/kernels/block_agg.py:104",
+    ),
 }
+# the kernels each path must launch
+ORDERS_KERNELS = ("scan_agg_locate", "select_compact", "merge_run_positions", "ecdf_hist")
+VIEW_KERNELS = ("block_sums", "boundary_block_sums")
 
 
 def fail(msg: str) -> None:
@@ -180,20 +214,41 @@ def wide_batch():
 # -- brute-force oracle -------------------------------------------------------------
 
 
-def check_answers(eng, cf_name, pairs, key_cols, value_cols, label):
-    """Each (query, (ScanResult, ReadReport)) against numpy over every row
-    the column family holds: counts and rows_matched exact, sums within
+class Oracle:
+    """Every row a column family holds, as columns on the card: key
+    columns int64, value columns float32 (as stored) widened to float64
+    for the sums."""
+
+    def __init__(self, key_cols, value_cols, dev):
+        self.keys = {c: torch.from_numpy(np.ascontiguousarray(v, np.int64)).to(dev) for c, v in key_cols.items()}
+        self.vals = {
+            c: torch.from_numpy(np.asarray(v).astype(np.float32).astype(np.float64)).to(dev)
+            for c, v in value_cols.items()
+        }
+
+    def answer(self, q, schema) -> tuple[int, float]:
+        mask = None
+        for col, f in q.filters.items():
+            lo, hi = f.bounds(schema, col)
+            v = self.keys[col]
+            m = (v >= lo) & (v < hi)
+            mask = m if mask is None else mask & m
+        if mask is None:
+            mask = torch.ones_like(next(iter(self.keys.values())), dtype=torch.bool)
+        n_match = int(mask.sum())
+        total = float(self.vals[q.value_col][mask].sum()) if q.agg == "sum" else 0.0
+        return n_match, total
+
+
+def check_answers(eng, cf_name, pairs, oracle, label):
+    """Each (query, (ScanResult, ReadReport)) against the oracle over every
+    row the column family holds: counts and rows_matched exact, sums within
     tolerance, rows_scanned equal to the serving replica's host slab and
     select indices equal to its host scan."""
     cf = eng.column_families[cf_name]
     handles = {r.replica_id: r for r in cf.replicas}
     for i, (q, (res, rep)) in enumerate(pairs):
-        mask = np.ones(len(key_cols["custkey"]), bool)
-        for col, f in q.filters.items():
-            lo, hi = f.bounds(cf.schema, col)
-            v = key_cols[col]
-            mask &= (v >= lo) & (v < hi)
-        n_match = int(mask.sum())
+        n_match, want = oracle.answer(q, cf.schema)
         what = f"{label} query {i} ({q.agg}, {q.filters})"
         check(res.rows_matched == n_match, f"{what}: rows_matched {res.rows_matched} != {n_match}")
         table = eng._table(cf, handles[rep.replica_id])
@@ -202,7 +257,6 @@ def check_answers(eng, cf_name, pairs, key_cols, value_cols, label):
         if q.agg == "count":
             check(res.value == n_match, f"{what}: count {res.value} != {n_match}")
         elif q.agg == "sum":
-            want = float(value_cols[q.value_col][mask].astype(np.float32).astype(np.float64).sum())
             check(
                 math.isclose(res.value, want, rel_tol=RTOL, abs_tol=ATOL),
                 f"{what}: sum {res.value} != {want}",
@@ -213,6 +267,42 @@ def check_answers(eng, cf_name, pairs, key_cols, value_cols, label):
                 res.selected is not None and np.array_equal(res.selected, host),
                 f"{what}: select indices differ from the host scan",
             )
+
+
+def uncounted(fn, *args):
+    """``fn(*args)`` with every kernel's launch count restored afterwards:
+    launches a check makes are not the main path's."""
+    import repro_torch.kernels as K
+
+    saved = {name: k.launches for name, k in K.KERNELS.items()}
+    try:
+        return fn(*args)
+    finally:
+        for name, k in K.KERNELS.items():
+            k.launches = saved[name]
+
+
+def check_view_bits(eng, cf_name, pairs, label) -> int:
+    """Every view-served answer (a sum or count eligible for the view of
+    the replica that answered it) against the fused kernel on that replica
+    table: value equal under float ``==``, every other ScanResult field
+    equal. Returns how many answers the views served."""
+    from repro_torch.kernels import ops
+
+    cf = eng.column_families[cf_name]
+    handles = {r.replica_id: r for r in cf.replicas}
+    groups: dict[int, list] = {}
+    for q, (res, rep) in pairs:
+        if eng._table(cf, handles[rep.replica_id])._view_eligible(q):
+            groups.setdefault(rep.replica_id, []).append((q, res))
+    for rid, items in groups.items():
+        fused = ops.table_execute_device_many(eng._table(cf, handles[rid]), [q for q, _ in items])
+        for (q, a), b in zip(items, fused):
+            check(
+                (a.value, a.rows_scanned, a.rows_matched, a.selected) == (b.value, b.rows_scanned, b.rows_matched, b.selected),
+                f"{label}: view answer {a} != fused {b} for {q.filters}",
+            )
+    return sum(len(v) for v in groups.values())
 
 
 # -- phase 2: kernels against their plain versions ---------------------------------------
@@ -400,6 +490,284 @@ def group_phase(eng, cf_name, batch, dev) -> tuple[dict, dict]:
     return report, layer
 
 
+def views_phase(base_eng, key_cols, value_cols, writes, batches, oracles, dev) -> dict:
+    """The views path, its launch counts set to 0 first: CREATE "orders_v"
+    with views on the same rows, the orders reads, the 10 writes. Returns
+    the path's numbers and its engine."""
+    import repro_torch.core as T
+    import repro_torch.kernels as K
+    from repro_torch.core.storage.views import verify_views
+
+    for fn in K.KERNELS.values():
+        fn.launches = 0
+    n_rows = len(key_cols["custkey"])
+    eng = T.HREngine(n_nodes=6, device=dev)
+    t = time.perf_counter()
+    eng.create_column_family(
+        "orders_v", key_cols, value_cols, replication_factor=3, mechanism="HR",
+        workload=T.tpch.q1_q2_workload(n_rows=n_rows), schema=T.tpch.orders_schema(),
+        device_resident=True, views=True,
+    )
+    torch.cuda.synchronize()
+    create_ms = (time.perf_counter() - t) * 1e3
+    check(eng.layouts("orders_v") == base_eng.layouts("orders"), "orders_v layouts differ from orders'")
+    cf = eng.column_families["orders_v"]
+
+    def verify_all(label):
+        for r in cf.replicas:
+            table = eng._table(cf, r)
+            check(table.has_views and uncounted(verify_views, table), f"{label}: replica {r.replica_id} view stale")
+
+    def checked(pairs, oracle, label) -> int:
+        uncounted(check_answers, eng, "orders_v", pairs, oracle, label)
+        return uncounted(check_view_bits, eng, "orders_v", pairs, label)
+
+    verify_all("create")
+    bl = K.KERNELS["boundary_block_sums"]
+    per_batch, served = [], 0
+    for b, batch in enumerate(batches):
+        before = (eng.stats["view_hits"], eng.stats["view_boundary_rows"], bl.launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = eng.read_many("orders_v", batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        hits = eng.stats["view_hits"] - before[0]
+        n_agg = sum(q.agg in ("sum", "count") for q in batch)
+        check(hits * 2 > n_agg, f"batch {b}: only {hits} of {n_agg} sums and counts were view hits")
+        per_batch.append(dict(
+            wall_ms=wall, queries=len(batch), view_hits=hits,
+            view_boundary_rows=eng.stats["view_boundary_rows"] - before[1],
+            boundary_launches=bl.launches - before[2],
+        ))
+        served += checked(list(zip(batch, out)), oracles[0], f"views batch {b}")
+    wide = wide_batch()
+    served += checked(list(zip(wide, eng.read_many("orders_v", wide))), oracles[0], "views wide")
+    scalar = batches[1][::16]
+    served += checked([(q, eng.read("orders_v", q)) for q in scalar], oracles[0], "views scalar")
+    check(served > 0, "no answer was served by a view")
+
+    write_ms = []
+    for i, (wk, wv) in enumerate(writes):
+        t = time.perf_counter()
+        eng.write("orders_v", wk, wv)
+        torch.cuda.synchronize()
+        write_ms.append((time.perf_counter() - t) * 1e3)
+        if i == 7:
+            check(eng.stats["compactions"] >= 3, "the 8th write did not compact orders_v")
+            check(eng.stats["view_rebuilds"] >= 3, f"view_rebuilds {eng.stats['view_rebuilds']} < 3")
+            verify_all("after the compaction")
+            out = eng.read_many("orders_v", batches[3])
+            served_c = checked(list(zip(batches[3], out)), oracles[1], "views after the compaction")
+            check(served_c > 0, "no view hit after the compaction")
+    check(all(eng._table(cf, r)._device["n_runs"] == 3 for r in cf.replicas), "orders_v holds no appended runs")
+    verify_all("after the last write")
+    launches_before = bl.launches
+    out = eng.read_many("orders_v", batches[2])
+    check(bl.launches > launches_before, "no boundary rescan after the writes")
+    served_w = checked(list(zip(batches[2], out)), oracles[2], "views after the writes")
+    served_w += checked(list(zip(wide, eng.read_many("orders_v", wide))), oracles[2], "views wide after the writes")
+    check(served_w > 0, "no view hit after the writes")
+
+    launches = {name: fn.launches for name, fn in K.KERNELS.items()}
+    for name in VIEW_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the views path")
+    stats = eng.stats
+    return eng, dict(
+        create_ms=create_ms, batches=per_batch, write_ms=write_ms, launches=launches,
+        view_hits=stats["view_hits"], view_boundary_rows=stats["view_boundary_rows"],
+        view_rebuilds=stats["view_rebuilds"], compactions=stats["compactions"],
+        result_cache_hits=stats["result_cache_hits"],
+    )
+
+
+def view_kernel_phase(eng, fresh_batch, dev) -> dict:
+    """The view kernels at the views path's shapes, each vs its plain
+    version: block_sums over a replica's whole SF 5 tile and over the tail
+    a 20,000-row flush refolds; boundary_block_sums on the pairs each
+    replica group of one fresh batch forms (timed per launch, summed per
+    batch). Then the bit identity of view and fused scan on a table whose
+    schema shrinks the fused scan's staging tile."""
+    import repro_torch.core as T
+    from repro_torch.core.storage.memtable import sort_run
+    from repro_torch.core.storage.views import plan_view_batch, verify_views
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.block_agg import (
+        block_sums, block_sums_plain, boundary_block_sums, boundary_block_sums_plain, scan_tile,
+    )
+
+    cf = eng.column_families["orders_v"]
+    handles = {r.replica_id: r for r in cf.replicas}
+    st = eng._table(cf, cf.replicas[0])._device
+    tile, n, nv, k_ex = st["values_tile"], st["n_rows"], st["n_value_rows"], sum(st["col_parts"])
+    nb = -(-tile.shape[1] // 8192)
+    args = dict(n_rows=n, block_n=8192, n_vals=nv, n_key_lanes=k_ex)
+    report = {}
+
+    def full():
+        return block_sums(tile, **args)
+
+    def full_plain():
+        return block_sums_plain(tile, n_rows=n, n_vals=nv)
+
+    def full_library():
+        return tile[:nv].view(nv, nb, 8192).sum(dim=2)
+
+    got, want = full(), full_plain()
+    check(bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL)), "block_sums: differs from plain")
+    check(torch.equal(got, full()), "block_sums: not deterministic")
+    first = (n - WRITE_ROWS) // 8192
+
+    def tail():
+        return block_sums(tile, first_block=first, **args)
+
+    b_full = bound(4 * nv * n + 4 * nv * nb, nv * n)
+    b_tail = bound(4 * nv * (n - first * 8192) + 4 * nv * (nb - first), nv * (n - first * 8192))
+    report["block_sums"] = dict(
+        max_abs_err=max_abs_diff(got, want), ms=time_ms(full, 20), plain_ms=time_ms(full_plain, 3),
+        bound_ms=b_full[0], bound_by=b_full[1], library_ms=time_ms(full_library, 20),
+        per=f"full build, {n} rows x {nv} value rows ({nb} blocks)",
+        tail=dict(blocks=nb - first, ms=time_ms(tail, 50), bound_ms=b_tail[0], bound_by=b_tail[1]),
+        scan_tile=scan_tile(k_ex, nv),
+    )
+
+    # boundary pairs of one fresh batch, per replica group
+    torch.cuda.synchronize()
+    out = eng.read_many("orders_v", fresh_batch)
+    groups: dict[int, list] = {}
+    for q, (_, rep) in zip(fresh_batch, out):
+        table = eng._table(cf, handles[rep.replica_id])
+        if table._view_eligible(q):
+            groups.setdefault(rep.replica_id, []).append(q)
+    rows = []
+    for rid, qs in groups.items():
+        table = eng._table(cf, handles[rid])
+        s2 = table._device
+        plan = plan_view_batch(table, qs)
+        p = int(plan["pair_sel"].shape[0])
+        if p == 0:
+            continue
+        ops_args = (plan["pair_sel"], plan["pair_block"], plan["pair_lo"], plan["pair_hi"])
+        bargs = dict(n_rows=s2["n_rows"], block_n=8192, n_vals=s2["n_value_rows"], n_key_lanes=sum(s2["col_parts"]))
+        t_ops = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev) for a in ops_args]
+
+        def bnd(s2=s2, ops_args=ops_args, bargs=bargs):
+            return boundary_block_sums(s2["values_tile"], *ops_args, **bargs)
+
+        def bnd_plain(s2=s2, t_ops=t_ops):
+            return boundary_block_sums_plain(s2["values_tile"], *t_ops, n_rows=s2["n_rows"])
+
+        kb, kp = bnd(), bnd_plain()
+        check(bool(torch.allclose(kb, kp, rtol=RTOL, atol=ATOL)), f"boundary_block_sums (replica {rid}): differs from plain")
+        check(torch.equal(kb, bnd()), "boundary_block_sums: not deterministic")
+        # rows the rescans read: each pair's in-window live rows of its block
+        b0 = plan["pair_block"][:, None] * 8192
+        b1 = np.minimum(b0 + 8192, s2["n_rows"])
+        read = np.maximum(np.minimum(plan["pair_hi"], b1) - np.maximum(plan["pair_lo"], b0), 0).sum()
+        w = plan["pair_lo"].shape[1]
+        work = (4 * int(read) + p * (8 + 8 * w) + 4 * p, int(read) * (1 + 2 * w))
+        rows.append(dict(
+            replica=rid, pairs=p, windows=w, rows_read=int(read), max_abs_err=max_abs_diff(kb, kp),
+            ms=time_ms(bnd, 20), plain_ms=time_ms(bnd_plain, 3), bound_ms=bound(*work)[0], work=work,
+        ))
+    check(len(rows) > 0, "boundary_block_sums: the fresh batch formed no boundary pairs")
+    b, by = bound(sum(r["work"][0] for r in rows), sum(r["work"][1] for r in rows))
+    report["boundary_block_sums"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in rows), ms=sum(r["ms"] for r in rows),
+        plain_ms=sum(r["plain_ms"] for r in rows), bound_ms=b, bound_by=by, library_ms=None,
+        per=f"read_many batch of {len(fresh_batch)} ({len(rows)} launches)",
+        groups=[{k: v for k, v in r.items() if k != "work"} for r in rows],
+    )
+
+    # a schema whose staging tile is 1024 rows: eight key lanes and fifteen
+    # value columns plus the ones row (24 staged words a row)
+    rng = np.random.default_rng(7)
+    bits = {f"k{i}": 7 for i in range(8)}
+    layout = tuple(bits)
+    n_small, n_vcols = 300_000, 15
+
+    def cols(m):
+        kc = {c: rng.integers(0, 64, m, dtype=np.int64) for c in bits}
+        return kc, {f"v{i}": rng.uniform(-10.0, 100.0, m) for i in range(n_vcols)}
+
+    small = T.SortedTable.from_columns(*cols(n_small), layout, T.KeySchema(dict(bits)))
+    small.place_on_device(dev).build_views()
+    s3 = small._device
+    small_tile = scan_tile(sum(s3["col_parts"]), s3["n_value_rows"])
+    check(small_tile < 2048, f"the wide schema's staging tile is {small_tile}, not below 2048")
+    qs = []
+    for i in range(256):
+        depth = int(rng.integers(0, 4))
+        f = {c: T.Eq(int(rng.integers(0, 64))) for c in layout[:depth]}
+        lo = int(rng.integers(0, 64))
+        f[layout[depth]] = T.Range(lo, int(rng.integers(lo, 65)))
+        qs.append(T.Query(filters=f, agg="sum" if i % 4 else "count", value_col=f"v{i % n_vcols}"))
+    compared = 0
+    for step in range(3):
+        check(verify_views(small), f"small-tile table, step {step}: view stale")
+        served = small.execute_many(qs)
+        fused = ops.table_execute_device_many(small, qs)
+        for q, a, c in zip(qs, served, fused):
+            check(
+                (a.value, a.rows_scanned, a.rows_matched) == (c.value, c.rows_scanned, c.rows_matched),
+                f"small-tile table, step {step}: view {a} != fused {c} for {q.filters}",
+            )
+        compared += len(qs)
+        small = small.merge_run(sort_run(*cols(40_000), layout, small.schema))
+    report["small_tile"] = dict(
+        rows=n_small, key_lanes=sum(s3["col_parts"]), value_rows=s3["n_value_rows"], scan_tile=small_tile,
+        answers_compared=compared,
+    )
+    torch.cuda.synchronize()
+    return report
+
+
+class StageClock:
+    """A sink for the engine's ``trace=`` spans: host-clock wall per span
+    name, summed over the batch. The read path's spans end after their
+    results reach the host, so each holds the device work it waited for."""
+
+    def __init__(self):
+        self.ms: dict[str, float] = {}
+
+    def child(self, name: str, **_) -> "_Span":
+        return _Span(self, name)
+
+
+class _Span:
+    def __init__(self, clock: StageClock, name: str):
+        self.clock, self.name, self.t0 = clock, name, time.perf_counter()
+
+    def child(self, name: str, **_) -> "_Span":
+        return _Span(self.clock, name)
+
+    def end(self, **_) -> None:
+        ms = (time.perf_counter() - self.t0) * 1e3
+        self.clock.ms[self.name] = self.clock.ms.get(self.name, 0.0) + ms
+
+
+def breakdown_phase(targets, n_rows: int, seed: int) -> dict:
+    """Where the time of a fresh ``read_many`` batch of 256 goes on each
+    column family: the engine's spans on the host clock for one batch, and
+    the device's busy time and kernels under ``torch.profiler`` for a
+    second one (the profiler's own host cost makes its wall, and the idle
+    share it gives, an upper bound)."""
+    clocked, profiled = read_batches(n_rows, seed)[:2]
+    out = {}
+    for label, (eng, cf_name) in targets.items():
+        clock = StageClock()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.read_many(cf_name, clocked, trace=clock)
+        torch.cuda.synchronize()
+        out[label] = {
+            "wall_ms": (time.perf_counter() - t) * 1e3,
+            "spans_ms": clock.ms,
+            "profile": profile_batch(eng, cf_name, profiled),
+        }
+    return out
+
+
 def profile_batch(eng, cf_name, batch) -> dict:
     """One ``read_many`` batch under ``torch.profiler``: its host wall, the
     union of the device's kernel and copy intervals (busy time), and the
@@ -439,11 +807,6 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=5.0, help="TPC-H scale factor (1.5 M rows each)")
     ap.add_argument("--seed", type=int, default=0, help="seed of the generated data")
-    ap.add_argument(
-        "--profile", action="store_true",
-        help="after the reads, trace one fresh read_many batch with torch.profiler "
-        "and print the device's busy time and its kernels' times",
-    )
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -484,6 +847,15 @@ def run(args, dev) -> None:
     ]
     batches = read_batches(n_rows, args.seed)
     print(f"data: {n_rows} orders rows (SF {args.sf}), 10 writes of {WRITE_ROWS} rows", flush=True)
+    # the oracle's rows: the CREATE rows, then after 8 and after 10 writes
+    oracles = [
+        Oracle(
+            {c: np.concatenate([key_cols[c]] + [w[0][c] for w in writes[:k]]) for c in key_cols},
+            {c: np.concatenate([value_cols[c]] + [w[1][c] for w in writes[:k]]) for c in value_cols},
+            dev,
+        )
+        for k in (0, 8, 10)
+    ]
 
     # 2. kernels against their plain versions
     report = phases.run("kernels", kernel_phase, key_cols, value_cols, writes, dev)
@@ -528,14 +900,12 @@ def run(args, dev) -> None:
         for qq, got, want in zip(batches[1][::16], scalar, outs[1][::16]):
             check(got[1].replica_id == want[1].replica_id, "read routes differently from read_many")
             check(got[0].rows_matched == want[0].rows_matched, f"read != read_many for {qq.filters}")
-        check_answers(eng, "orders", list(zip(batches[0][::4], outs[0][::4])), key_cols, value_cols, "before writes")
-        check_answers(eng, "orders", list(zip(wide, wide_out)), key_cols, value_cols, "wide")
+        for b, (batch, out) in enumerate(zip(batches, outs)):
+            check_answers(eng, "orders", list(zip(batch, out)), oracles[0], f"batch {b} before writes")
+        check_answers(eng, "orders", list(zip(wide, wide_out)), oracles[0], "wide")
 
     phases.run("reads", reads)
     print(f"read_many batch ms (host clock): {[round(x, 3) for x in batch_ms]}", flush=True)
-    if args.profile:
-        fresh = read_batches(n_rows, args.seed + 1)[0]
-        print(json.dumps({"profile": profile_batch(eng, "orders", fresh)}), flush=True)
 
     # 5. writes, device compaction, reads over every row
     def timed_write(wk, wv):
@@ -567,19 +937,17 @@ def run(args, dev) -> None:
             all(eng._table(cf, r)._device["n_runs"] == 3 for r in cf.replicas),
             "the last two writes did not leave appended runs",
         )
-        all_k = {c: np.concatenate([key_cols[c]] + [w[0][c] for w in writes]) for c in key_cols}
-        all_v = {c: np.concatenate([value_cols[c]] + [w[1][c] for w in writes]) for c in value_cols}
         out = eng.read_many("orders", batches[2])
-        check_answers(eng, "orders", list(zip(batches[2][::4], out[::4])), all_k, all_v, "after writes")
+        check_answers(eng, "orders", list(zip(batches[2], out)), oracles[2], "after writes")
         wide = wide_batch()
-        check_answers(eng, "orders", list(zip(wide, eng.read_many("orders", wide))), all_k, all_v, "wide after writes")
-        check(cf.stats.n_rows == len(all_k["custkey"]), "statistics missed rows")
+        check_answers(eng, "orders", list(zip(wide, eng.read_many("orders", wide))), oracles[2], "wide after writes")
+        check(cf.stats.n_rows == n_rows + len(writes) * WRITE_ROWS, "statistics missed rows")
 
     phases.run("writes", writes_phase)
 
     launches = {name: fn.launches for name, fn in K.KERNELS.items()}
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ORDERS_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the main path")
     stats = eng.stats
     write_layer = {
         "replica_flushes": stats["memtable_flushes"], "compactions": stats["compactions"],
@@ -591,7 +959,25 @@ def run(args, dev) -> None:
     group_report, read_layer = phases.run("groups", group_phase, eng, "orders", fresh, dev)
     report.update(group_report)
 
-    # 7. report
+    # 7. the views path: its own launch counts, from 0
+    veng, views = phases.run(
+        "views", views_phase, eng, key_cols, value_cols, writes, batches, oracles, dev
+    )
+    for name in VIEW_KERNELS:
+        launches[name] = views["launches"][name]
+    oracles.clear()
+
+    # 8. the view kernels against their plain versions
+    report.update(phases.run("view_kernels", view_kernel_phase, veng, read_batches(n_rows, args.seed + 3)[0], dev))
+
+    # 9. where a fresh batch's time goes, on both column families
+    where = phases.run(
+        "breakdown", breakdown_phase, {"orders": (eng, "orders"), "orders_v": (veng, "orders_v")},
+        n_rows, args.seed + 5,
+    )
+
+    # 10. report
+    small_tile = report.pop("small_tile")
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         kernels.append(
@@ -602,6 +988,11 @@ def run(args, dev) -> None:
     print(json.dumps({"phases_ms": phases.ms, "build_s": build_s, "card": card,
                       "read_many_batch_ms": batch_ms, "write_ms": write_ms, "rows": n_rows,
                       "read_layer": read_layer, "write_layer": write_layer}))
+    print(json.dumps({"views": dict(
+        card=card, orders_batch_ms=batch_ms,
+        orders_v_batch_ms=[b["wall_ms"] for b in views["batches"]], **views,
+        small_tile=small_tile, where_time=where,
+    )}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,5 +1,6 @@
 """Heterogeneous-replica core of the port: composite keys → SortedTable →
-ECDF stats → cost model (Eq 1–4) → HRCA (Alg 1) → HREngine (paper §4)."""
+ECDF stats → cost model (Eq 1–4) → HRCA (Alg 1) → HREngine (paper §4),
+with materialized per-slab views on device-resident replicas."""
 
 from .cost_model import CostModel, LinearCostFunction, estimate_rows, estimate_rows_many
 from .ecdf import ColumnStats, TableStats
@@ -13,7 +14,15 @@ from .engine import (
 from .hrca import HRCAResult, hrca, initial_state
 from .keys import KeySchema, pack_columns, pack_tuple
 from .ring import Partition, ReplicaHandle, TokenRing, place_replica
-from .storage import CommitLog, CompactionPolicy, Memtable, SortedRun
+from .storage import (
+    VIEW_ROWS_CAP,
+    CommitLog,
+    CompactionPolicy,
+    Memtable,
+    SortedRun,
+    query_view_eligible,
+    verify_views,
+)
 from .table import ScanResult, SortedTable, slab_bounds_for, slab_bounds_many
 from .workload import Eq, Query, Range, Workload, random_workload
 
@@ -43,6 +52,9 @@ __all__ = [
     "CompactionPolicy",
     "Memtable",
     "SortedRun",
+    "VIEW_ROWS_CAP",
+    "query_view_eligible",
+    "verify_views",
     "ScanResult",
     "SortedTable",
     "slab_bounds_for",

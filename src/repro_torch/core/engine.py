@@ -21,11 +21,16 @@ each ``read``/``read_many`` replica group is one fused locate+scan launch
 (plus one select-compaction launch for selects with matches), each flush
 appends a run to the resident tensors, the compaction policy merges the
 run stack on the device, and every write's statistics refresh runs the
-histogram kernel there.
+histogram kernel there. With ``views=True`` every replica also keeps a
+materialized per-slab view (``storage.views``): view-eligible sums and
+counts are planned with a capped row estimate and answered from per-block
+partials plus boundary-block rescans, each flush extends the view and each
+compaction rebuilds it, on the view kernels.
 
 Features of the reference outside this slice raise ``NotImplementedError``
-naming their ROADMAP.md item: views, partitions > 1, consistency above
-ONE, hedged reads, node failure and recovery, scrub and resharding.
+naming their ROADMAP.md item: partitions > 1 (with or without views),
+consistency above ONE, hedged reads, node failure and recovery, scrub and
+resharding.
 
 Batched reads (``read_many``) keep the reference's semantics exactly:
 the cost matrix over (replica, query) equals Q×R scalar estimates, one
@@ -57,6 +62,12 @@ from .keys import KeySchema
 from .ring import Partition, ReplicaHandle, TokenRing, place_replica
 from .storage import CommitLog, CompactionPolicy, Memtable, compact_table
 from .storage.memtable import combine_digests
+from .storage.views import (
+    VIEW_AGGS,
+    VIEW_ROWS_CAP,
+    query_view_eligible,
+    view_eligible_matrix,
+)
 from .table import ScanResult, SortedTable
 from .workload import Query, Workload
 
@@ -115,6 +126,12 @@ ENGINE_COUNTERS = (
     "compactions",
     "corrupt_runs",
     "flush_wall_seconds",
+    # materialized per-slab views: queries the view path answered, live
+    # rows of the boundary blocks it rescanned, and full view rebuilds
+    # (compaction; CREATE and flush extensions are not rebuilds)
+    "view_hits",
+    "view_boundary_rows",
+    "view_rebuilds",
 )
 
 
@@ -147,6 +164,11 @@ class ColumnFamily:
     device_resident: bool = False
     # group-commit staging threshold (0 = write-through: every write flushes)
     memtable_rows: int = 0
+    # materialized per-slab aggregate views (storage.views) on every
+    # resident replica: view-eligible aggregates are served O(blocks
+    # touched) and the Cost Evaluator caps their row estimate at
+    # VIEW_ROWS_CAP
+    views: bool = False
 
     @property
     def replication_factor(self) -> int:
@@ -277,6 +299,9 @@ class HREngine:
         self._compactions = self.metrics.counter("compactions")
         self._corrupt_runs = self.metrics.counter("corrupt_runs")
         self._flush_wall = self.metrics.counter("flush_wall_seconds")
+        self._view_hits = self.metrics.counter("view_hits")
+        self._view_boundary_rows = self.metrics.counter("view_boundary_rows")
+        self._view_rebuilds = self.metrics.counter("view_rebuilds")
 
     # -- stats and result cache ----------------------------------------------
 
@@ -378,11 +403,24 @@ class HREngine:
         device. Raises if the schema exceeds the device path's per-column
         two-lane budget. The CREATE-time dataset is record 0 of the
         column family's commit log.
+
+        ``views=True`` (requires ``device_resident``) additionally
+        materializes a per-slab aggregate view on every replica table:
+        per-block partial sums of the value tile in that replica's own
+        sort order (``storage.views``). View-eligible sum and count
+        queries — slab filters forming a prefix of the layout — are then
+        answered from the stored partials plus a rescan of at most the two
+        window-edge blocks per run, bit-identical to the fused scan. Views
+        extend at flush and rebuild at compaction.
         """
-        if views:
-            raise _not_in_slice("views=True", "Queue 1 item 1")
+        if views and not device_resident:
+            raise ValueError(
+                "views=True requires device_resident=True (views are "
+                "per-block partials of the resident value tile)"
+            )
         if partitions != 1:
-            raise _not_in_slice("partitions > 1", "Queue 1 item 3")
+            what = "views=True with partitions > 1" if views else "partitions > 1"
+            raise _not_in_slice(what, "Queue 1 item 3")
         if name in self.column_families:
             raise ValueError(f"column family {name!r} exists")
         if schema is None:
@@ -421,6 +459,8 @@ class HREngine:
             table = SortedTable.from_columns(key_cols, value_cols, layout, schema)
             if device_resident:
                 table.place_on_device(self.device)
+                if views:
+                    table.build_views()
             if digest is None:
                 digest = table.seal_checksum().stored_digest
             else:
@@ -454,6 +494,7 @@ class HREngine:
             hrca_result=hrca_result,
             device_resident=device_resident,
             memtable_rows=self.memtable_rows if memtable_rows is None else memtable_rows,
+            views=views,
         )
         self.column_families[name] = cf
         return cf
@@ -476,11 +517,19 @@ class HREngine:
         return self.nodes[r.node_id].tables[(cf.name, r.replica_id)]
 
     def _ranked_replicas(self, cf: ColumnFamily, query: Query) -> list[_Ranked]:
-        """Replicas ranked by estimated cost (Eq 2–3)."""
+        """Replicas ranked by estimated cost (Eq 2–3), with a view-eligible
+        aggregate's row estimate capped at ``VIEW_ROWS_CAP`` on a views
+        column family."""
         ranked: list[_Ranked] = []
         for r in cf.replicas:
             rows = estimate_rows(cf.stats, r.layout, query)
             cost = cf.cost_model.cost_fn(len(r.layout))(rows)
+            if cf.views and query.agg in VIEW_AGGS and query_view_eligible(query, r.layout):
+                # view term (Eq 1–2 refined): a view-eligible aggregate
+                # touches at most the two window-edge blocks per run, so
+                # its row estimate is capped — a view hit beats a full
+                # scan regardless of selectivity
+                cost = cf.cost_model.cost_fn(len(r.layout))(min(rows, float(VIEW_ROWS_CAP)))
             ranked.append((cost, rows, r))
         ranked.sort(key=lambda t: t[0])
         return ranked
@@ -592,6 +641,23 @@ class HREngine:
                     for k, r in enumerate(replicas)
                 ]
             )
+            # view term: cap eligible (replica, query) row estimates. The
+            # any() guard doubles as the all-select fast path — a batch
+            # with no sum/count never walks the eligibility arrays
+            if cf.views and any(q.agg in VIEW_AGGS for q in queries):
+                elig = view_eligible_matrix([r.layout for r in replicas], queries)
+                if elig.any():
+                    capped = np.minimum(rows_mat, float(VIEW_ROWS_CAP))
+                    cost_mat = np.where(
+                        elig,
+                        np.stack(
+                            [
+                                cf.cost_model.cost_fn(len(r.layout)).many(capped[k])
+                                for k, r in enumerate(replicas)
+                            ]
+                        ),
+                        cost_mat,
+                    )
             picks = _schedule_picks(cost_mat, cf.rr_counter)
             if plan is not None:
                 plan.end(replicas=len(replicas))
@@ -627,11 +693,19 @@ class HREngine:
             if trace is not None and miss_j
             else None
         )
+        vstats = {"hits": 0, "boundary_rows": 0} if cf.views else None
         t0 = time.perf_counter()
-        miss_scans = table.execute_many([group[j] for j in miss_j], trace=sc) if miss_j else []
+        miss_scans = (
+            table.execute_many([group[j] for j in miss_j], trace=sc, view_stats=vstats)
+            if miss_j
+            else []
+        )
         wall = time.perf_counter() - t0
         if sc is not None:
             sc.end(rows=int(sum(s.rows_scanned for s in miss_scans)))
+        if vstats is not None and vstats["hits"]:
+            self._view_hits.inc(vstats["hits"])
+            self._view_boundary_rows.inc(vstats["boundary_rows"])
         per_q_wall = wall / len(miss_j) if miss_j else 0.0
         scans: list[ScanResult | None] = [None] * len(group)
         walls = [0.0] * len(group)
@@ -745,7 +819,8 @@ class HREngine:
         ``merge_run``, result cache invalidated, then the compaction
         policy applied to the merged table. A run that fails its checksum
         raises :class:`CorruptRunError` before it merges, and its rows
-        stay staged."""
+        stay staged. On a views column family ``merge_run`` extends each
+        replica's view and compaction rebuilds it (``view_rebuilds``)."""
         pending = [
             r for r in replicas
             if self._memtable(cf, r).n_staged
@@ -793,6 +868,7 @@ class HREngine:
                 fs.end()
             if cf.device_resident and not merged.device_resident:
                 merged.place_on_device(self.device)
+            self._ensure_views(cf, merged)
             node.tables[(cf.name, r.replica_id)] = merged
             self._memtable(cf, r).clear()
             self._flushes.inc()
@@ -802,6 +878,10 @@ class HREngine:
                 if compact_table(merged, part.compaction):
                     # content unchanged by compaction: the seal carries over
                     self._compactions.inc()
+                    if merged.has_views:
+                        # compact_runs re-derived the per-block partials
+                        # over the collapsed run stack (full rebuild)
+                        self._view_rebuilds.inc()
                     self._invalidate_result_cache(cf.name, r.replica_id)
                     if trace is not None:
                         trace.child("engine.compaction", t=tc, replica=r.replica_id).end()
@@ -816,6 +896,18 @@ class HREngine:
             log.checkpoint()
             self._auto_checkpoints.inc()
         self._flush_wall.inc(time.perf_counter() - t0)
+
+    def _ensure_views(self, cf: ColumnFamily, table: SortedTable) -> None:
+        """Materialize a views column family's per-block partials on
+        ``table`` if absent (full rebuild from the resident tensors,
+        counted under ``view_rebuilds``). Tables that already carry views
+        (the incremental ``merge_run`` extension, or ``compact_runs``' own
+        rebuild) are left alone. A views column family is device-resident,
+        so ``table`` already is."""
+        if not cf.views or table.has_views:
+            return
+        table.build_views()
+        self._view_rebuilds.inc()
 
     def _memtable(self, cf: ColumnFamily, r: ReplicaHandle) -> Memtable:
         return cf.partitions[r.partition_id].memtables[r.replica_id]
@@ -854,7 +946,8 @@ class HREngine:
         raise _not_in_slice("recover_node", "Queue 1 item 4")
 
     def scrub_column_family(self, cf_name: str, *, repair: bool = True) -> dict:
-        raise _not_in_slice("scrub_column_family", "Queue 1 item 4")
+        # scrub also audits and heals the views of a views column family
+        raise _not_in_slice("scrub_column_family (with view healing)", "Queue 1 item 4")
 
     def split_partition(self, cf_name: str, *args, **kwargs) -> None:
         raise _not_in_slice("split_partition", "Queue 1 item 4")

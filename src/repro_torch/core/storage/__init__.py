@@ -6,7 +6,9 @@ shared by all replicas of the column family, staged in each replica's
 replica's own key layout (``SortedTable.merge_run``).
 :class:`CompactionPolicy` bounds how many flushed runs a device-resident
 replica accumulates before the merge-rank kernel collapses them on the
-device.
+device. ``views`` keeps a device-resident replica's materialized per-slab
+aggregate view: per-block partial sums, extended at flush and rebuilt at
+compaction.
 """
 
 from .commitlog import CommitLog, LogRecord
@@ -18,6 +20,16 @@ from .memtable import (
     content_digest,
     run_crc32,
     sort_run,
+)
+from .views import (
+    VIEW_AGGS,
+    VIEW_ROWS_CAP,
+    build_views_state,
+    extend_views_state,
+    query_view_eligible,
+    serve_view_many,
+    verify_views,
+    view_eligible_matrix,
 )
 
 __all__ = [
@@ -31,4 +43,12 @@ __all__ = [
     "content_digest",
     "run_crc32",
     "sort_run",
+    "VIEW_AGGS",
+    "VIEW_ROWS_CAP",
+    "build_views_state",
+    "extend_views_state",
+    "query_view_eligible",
+    "serve_view_many",
+    "verify_views",
+    "view_eligible_matrix",
 ]

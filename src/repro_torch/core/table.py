@@ -13,7 +13,9 @@ returns it alongside the query result. A table placed on a device
 queries from its resident tensors through the fused locate+scan and
 select-compaction kernels (``repro_torch.kernels.ops``); writes append
 runs to the resident tensors and :meth:`SortedTable.compact_runs` merges
-them on the device.
+them on the device. A resident table may also carry a materialized
+per-slab view (:meth:`SortedTable.build_views`, ``storage.views``) that
+answers eligible sums and counts from per-block partials.
 """
 
 from __future__ import annotations
@@ -252,6 +254,41 @@ class SortedTable:
     def device_resident(self) -> bool:
         return self._device is not None
 
+    # -- materialized per-slab views ----------------------------------------
+
+    def build_views(self, *, trace=None) -> "SortedTable":
+        """(Re)build the materialized per-slab aggregate view over the
+        resident tensors (``storage.views``): per-block float32 partial
+        sums of the value tile (the ``block_sums`` kernel) plus the per-run
+        packed key index. Views are *derived* state. Requires device
+        residency. Returns ``self`` for chaining."""
+        from .storage.views import build_views_state
+
+        if self._device is None:
+            raise ValueError("build_views requires a device-resident table")
+        vb = trace.child("view.build", rows=len(self)) if trace is not None else None
+        self._device["views"] = build_views_state(self._device, self.packed)
+        if vb is not None:
+            vb.end()
+        return self
+
+    @property
+    def has_views(self) -> bool:
+        return self._device is not None and "views" in self._device
+
+    def _view_eligible(self, query: Query) -> bool:
+        """Queries the view answers bit-identically to the fused scan:
+        sum/count whose filters the slab walk fully consumes on this
+        layout (no residual predicate), with the view built and sum value
+        columns resident."""
+        from .storage.views import query_view_eligible
+
+        return (
+            self.has_views
+            and query_view_eligible(query, self.layout)
+            and (query.agg != "sum" or query.value_col in self._device["value_rows"])
+        )
+
     def _device_eligible(self, query: Query) -> bool:
         """Queries the device path answers end-to-end: sum/count
         aggregations and "select" row emission. Sums need their value
@@ -290,8 +327,9 @@ class SortedTable:
         resident tensors (``kernels.ops.device_state_append``) instead of
         re-uploading the table: the returned table is immediately
         resident, with a ``row_map`` translating device row order (base
-        rows then appended runs) back to the merged host order.
-        ``trace`` is accepted for the span tree of a later slice."""
+        rows then appended runs) back to the merged host order. A view is
+        extended O(run) (``storage.views.extend_views_state``); ``trace``
+        records that as a ``view.build`` span."""
         new_packed = np.asarray(run.packed)
         m = int(new_packed.shape[0])
         n_old = len(self)
@@ -329,18 +367,37 @@ class SortedTable:
             merged._device = device_state_append(
                 self._device, merged, run.key_cols, run.value_cols, pos
             )
+            if "views" in self._device and m > 0:
+                # extend the materialized view O(run): only blocks at or
+                # after the append point refold (storage.views)
+                from .storage.views import extend_views_state
+
+                vb = (
+                    trace.child("view.build", rows=m, incremental=True)
+                    if trace is not None
+                    else None
+                )
+                merged._device["views"] = extend_views_state(
+                    self._device["views"], merged._device, new_packed, n_old
+                )
+                if vb is not None:
+                    vb.end()
         return merged
 
     def compact_runs(self) -> "SortedTable":
         """Collapse appended device runs into one sorted run *on the
         device* (``kernels.ops.merge_device_runs``: merge ranks plus one
         scatter per resident tensor) — nothing is re-uploaded. Afterwards
-        device row order equals host row order again. No-op on host
-        tables and single-run states. Returns ``self``."""
+        device row order equals host row order again, and a view is
+        rebuilt whole (block boundaries moved with the row order). No-op
+        on host tables and single-run states. Returns ``self``."""
         if self._device is not None and self._device.get("n_runs", 1) > 1:
             from ..kernels.ops import merge_device_runs
 
+            had_views = "views" in self._device
             self._device = merge_device_runs(self._device)
+            if had_views:
+                self.build_views()
         return self
 
     # -- reads ---------------------------------------------------------------
@@ -361,7 +418,7 @@ class SortedTable:
 
         The reference answers single-run resident tables here with its
         binary-search kernel (``slab_locate_kernel``); that kernel is not
-        ported yet (ROADMAP Queue 1 item 2), so every table takes this host path,
+        ported yet (ROADMAP Queue 1 item 6), so every table takes this host path,
         which gives the same slabs. The device read path never calls it:
         the fused kernel decides slab membership by key."""
         bounds = slab_bounds_many(list(queries), self.layout, self.schema)
@@ -377,7 +434,13 @@ class SortedTable:
         Device-resident tables answer eligible queries (sum, count,
         select) with the fused locate+scan launch at Q = 1, so a scalar
         loop and ``execute_many`` compute per-query results identically;
-        numpy is the reference engine and the path for host tables."""
+        numpy is the reference engine and the path for host tables.
+        View-eligible queries are served from the view, bit-identical to
+        the fused launch."""
+        if self._view_eligible(query):
+            from .storage.views import serve_view_many
+
+            return serve_view_many(self, [query])[0]
         if self._device_eligible(query):
             from ..kernels.ops import table_execute_device_many
 
@@ -385,22 +448,41 @@ class SortedTable:
         lo, hi = self.slab(query)
         return self._scan_slab(query, lo, hi)
 
-    def execute_many(self, queries: Sequence[Query], *, trace=None) -> list[ScanResult]:
-        """Batched ``execute``: on a device-resident table every eligible
-        query is served by one ``table_execute_device_many`` call (one
-        fused launch, plus one compaction launch for selects with
-        matches); host tables (and ineligible aggregations) locate slabs
-        with one vectorized searchsorted and run the numpy residual scan.
-        Result ``i`` equals ``execute(queries[i])`` either way.
+    def execute_many(
+        self, queries: Sequence[Query], *, trace=None, view_stats=None
+    ) -> list[ScanResult]:
+        """Batched ``execute``: on a table with a view, view-eligible
+        queries (sum/count fully consumed by the slab walk) are answered
+        from the stored per-block partials (``storage.views.
+        serve_view_many``: O(blocks touched), bit-identical to the fused
+        scan); on a device-resident table every other eligible query is
+        served by one ``table_execute_device_many`` call (one fused
+        launch, plus one compaction launch for selects with matches); host
+        tables (and ineligible aggregations) locate slabs with one
+        vectorized searchsorted and run the numpy residual scan. Result
+        ``i`` equals ``execute(queries[i])`` either way.
 
-        ``trace`` (an open span, or None) records the device launches as
-        ``kernel.scan_launch`` / ``kernel.select_compact`` children and
-        the numpy path as ``engine.host_scan``."""
+        ``trace`` (an open span, or None) records view hits as
+        ``view.serve``, the device launches as ``kernel.scan_launch`` /
+        ``kernel.select_compact`` children and the numpy path as
+        ``engine.host_scan``. ``view_stats`` (a dict, or None) receives
+        the view's ``hits`` / ``boundary_rows`` tallies."""
         queries = list(queries)
         if not queries:
             return []
         results: list[ScanResult | None] = [None] * len(queries)
-        dev_idx = [i for i, q in enumerate(queries) if self._device_eligible(q)]
+        view_idx = [i for i, q in enumerate(queries) if self._view_eligible(q)]
+        if view_idx:
+            from .storage.views import serve_view_many
+
+            out = serve_view_many(
+                self, [queries[i] for i in view_idx], trace=trace, view_stats=view_stats
+            )
+            for i, r in zip(view_idx, out):
+                results[i] = r
+        dev_idx = [
+            i for i, q in enumerate(queries) if results[i] is None and self._device_eligible(q)
+        ]
         if dev_idx:
             from ..kernels.ops import table_execute_device_many
 

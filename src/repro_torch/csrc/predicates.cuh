@@ -1,6 +1,7 @@
 // Shared device helpers for the read-path kernels (scan_locate.cu,
-// select_compact.cu): the resident key layout, the residual and slab
-// predicates, and the warp reduction.
+// select_compact.cu, block_sums.cu): the resident key layout, the residual
+// and slab predicates, the warp reduction, and the in-block float order of
+// the sum contract with the staging tile that order depends on.
 //
 // Layout (kernels/ops.py): key lanes are int32 rows of a [K_pad, N_pad]
 // row-major tensor, lane l of row r at keys[l * n_pad + r]. A logical key
@@ -91,6 +92,56 @@ inline int pick_tile(size_t fixed, int words_per_row) {
     if (fixed + (size_t)tile * words_per_row * 4 <= kSmemBudget) return tile;
   }
   return 0;
+}
+
+// ---- The sum contract's in-block order ----------------------------------
+//
+// A block partial (the float32 sum of one value row over the taken rows of
+// one 8192-row block) is reduced in this order, and in no other:
+//   1. the block is walked in staging tiles of scan_tile() rows, ascending,
+//      skipping the tiles that miss the query's row window; on the read
+//      path that window is [0, n_rows), the table's live rows;
+//   2. per tile, thread t sums the tile rows t, t + kThreads, ... in
+//      ascending order, starting from 0;
+//   3. a fixed warp butterfly reduces each warp, and lane 0 adds the warp's
+//      tile sum into that warp's slot (slots start at 0);
+//   4. the kWarps slots fold in warp order into the block partial.
+// The fused scan (scan_locate.cu) and the view kernels (block_sums.cu) all
+// take this order from the helpers below, so a view-served sum equals the
+// fused scan's bit for bit on every schema: the tile, and with it the
+// order, depends on the table's key lanes and live value rows.
+
+// Dynamic shared memory of the fused scan besides its staging tile: the
+// bounds, windows, selectors and per-warp partials of kQueryChunk queries.
+inline size_t scan_fixed_smem(int n_lanes) {
+  return (size_t)kQueryChunk * (4 * n_lanes + 3 + 3 * kWarps) * 4;
+}
+
+// Rows of the fused scan's staging tile for a table of `n_lanes` key lanes
+// and `n_vals` live value rows (0 if even the smallest tile does not fit).
+inline int scan_tile(int n_lanes, int n_vals) {
+  return pick_tile(scan_fixed_smem(n_lanes), n_lanes + n_vals);
+}
+
+// Steps 2 and 3 for one tile: `take(i, v)` says whether tile row i counts
+// and, if so, sets its value v. Every thread of the CTA must call it.
+template <typename Take>
+__device__ __forceinline__ void tile_sum_into(int tile, Take take,
+                                              float* warp_slots) {
+  float s = 0.f;
+  for (int i = threadIdx.x; i < tile; i += kThreads) {
+    float v;
+    if (take(i, v)) s += v;
+  }
+  s = warp_sum(s);
+  if ((threadIdx.x & 31) == 0) warp_slots[threadIdx.x >> 5] += s;
+}
+
+// Step 4: the block partial from the kWarps slots, folded in warp order.
+__device__ __forceinline__ float fold_warp_slots(const float* warp_slots) {
+  float s = 0.f;
+  for (int w = 0; w < kWarps; ++w) s += warp_slots[w];
+  return s;
 }
 
 }  // namespace repro

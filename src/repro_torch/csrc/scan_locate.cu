@@ -15,11 +15,11 @@
 // query of the chunk against the tile, with the query bounds broadcast
 // from shared memory.
 //
-// Float order (the parity contract): one CTA owns one 8192-row block. A
-// thread sums its rows in ascending order, a fixed warp butterfly reduces
-// the warp, each warp's partial accumulates in its own shared slot across
-// the block's tiles, and the 8 warp slots fold in warp order into the
-// block partial. A second pass folds the block partials sequentially in
+// Float order (the parity contract): one CTA owns one 8192-row block and
+// reduces each query's block partial in the in-block order that
+// predicates.cuh defines (tile_sum_into, fold_warp_slots, over tiles of
+// scan_tile() rows); the view kernels in block_sums.cu reduce a block the
+// same way. A second pass folds the block partials sequentially in
 // ascending block order in float32. No float atomics, no split of the sum
 // lane, so results are identical run to run.
 #include "predicates.cuh"
@@ -105,23 +105,24 @@ scan_partials(const int32_t* __restrict__ keys, int64_t n_pad, int n_lanes,
       const int32_t* shi = s_hi + q * L;
       const int sv = q_sel[q];
       const float* vrow = (sv >= 0 && sv < n_vals) ? tile_v + sv * tile : nullptr;
-      float s = 0.f;
       int m = 0;
       int c = 0;
-      for (int i = tid; i < tile; i += kThreads) {
-        const int64_t r = row0 + i;
-        if (r < lo || r >= hi) continue;
-        if (lex_ge(tile_k, tile, i, slo, L) && lex_le(tile_k, tile, i, shi, L)) ++c;
-        if (residual_ok(tile_k, tile, i, rlo, rhi, n_cols, wide_mask)) {
-          ++m;
-          if (vrow != nullptr) s += vrow[i];
-        }
-      }
-      s = warp_sum(s);
+      tile_sum_into(
+          tile,
+          [&](int i, float& v) {
+            const int64_t r = row0 + i;
+            if (r < lo || r >= hi) return false;
+            if (lex_ge(tile_k, tile, i, slo, L) && lex_le(tile_k, tile, i, shi, L)) ++c;
+            if (!residual_ok(tile_k, tile, i, rlo, rhi, n_cols, wide_mask)) return false;
+            ++m;
+            if (vrow == nullptr) return false;
+            v = vrow[i];
+            return true;
+          },
+          red_s + q * kWarps);
       m = warp_sum(m);
       c = warp_sum(c);
       if (lane == 0) {
-        red_s[q * kWarps + warp] += s;
         red_m[q * kWarps + warp] += m;
         red_c[q * kWarps + warp] += c;
       }
@@ -129,16 +130,14 @@ scan_partials(const int32_t* __restrict__ keys, int64_t n_pad, int n_lanes,
   }
   __syncthreads();
   for (int q = tid; q < qn; q += kThreads) {
-    float s = 0.f;
     int m = 0;
     int c = 0;
     for (int w = 0; w < kWarps; ++w) {
-      s += red_s[q * kWarps + w];
       m += red_m[q * kWarps + w];
       c += red_c[q * kWarps + w];
     }
     const int64_t o = (int64_t)blockIdx.x * n_q + q0 + q;
-    part_s[o] = s;
+    part_s[o] = fold_warp_slots(red_s + q * kWarps);
     part_m[o] = m;
     part_c[o] = c;
   }
@@ -187,10 +186,10 @@ extern "C" int scan_locate_launch(
   if (n_lanes < 1 || n_cols < 1 || n_cols > 32 || n_vals < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t fixed = (size_t)kQueryChunk * (4 * n_lanes + 3 + 3 * kWarps) * 4;
-  const int tile = pick_tile(fixed, n_lanes + n_vals);
+  // the tile sets the in-block float order: block_sums.cu takes the same
+  const int tile = scan_tile(n_lanes, n_vals);
   if (tile == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fixed + (size_t)tile * (n_lanes + n_vals) * 4;
+  const size_t smem = scan_fixed_smem(n_lanes) + (size_t)tile * (n_lanes + n_vals) * 4;
   cudaError_t e = cudaFuncSetAttribute(
       scan_partials, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -5,11 +5,19 @@ scan_agg_locate      — fused locate+scan (csrc/scan_locate.cu)
 select_compact       — select row-index compaction (csrc/select_compact.cu)
 merge_run_positions  — merge ranks of a resident run stack (csrc/merge_rank.cu)
 ecdf_hist            — histogram for the ECDF refresh (csrc/ecdf_hist.cu)
+block_sums           — per-block partial sums for views (csrc/block_sums.cu)
+boundary_block_sums  — boundary-block rescans for views (csrc/block_sums.cu)
 
 A wrapper runs its kernel on CUDA tensors and its plain version on CPU
 tensors, and counts its kernel launches in ``<wrapper>.launches``.
 """
 
+from .block_agg import (
+    block_sums,
+    block_sums_plain,
+    boundary_block_sums,
+    boundary_block_sums_plain,
+)
 from .ecdf_hist import ecdf_hist, ecdf_hist_plain
 from .merge_runs import merge_run_positions, merge_run_positions_plain
 from .ops import (
@@ -34,11 +42,17 @@ KERNELS = {
     "select_compact": select_compact,
     "merge_run_positions": merge_run_positions,
     "ecdf_hist": ecdf_hist,
+    "block_sums": block_sums,
+    "boundary_block_sums": boundary_block_sums,
 }
 
 __all__ = [
     "DEVICE_BLOCK_N",
     "KERNELS",
+    "block_sums",
+    "block_sums_plain",
+    "boundary_block_sums",
+    "boundary_block_sums_plain",
     "build_device_state",
     "device_key_plan",
     "device_state_append",

@@ -167,8 +167,9 @@ def build_device_state(table, value_cols=None, *, device) -> dict:
 def state_from_numpy(state: dict, device) -> dict:
     """The port's state from a reference device state whose ``keys`` and
     ``values_tile`` were converted to numpy: the same resident arrays as
-    tensors on ``device`` (host bookkeeping copied as is)."""
-    new = {k: v for k, v in state.items() if k not in ("keys", "values_tile")}
+    tensors on ``device`` (host bookkeeping copied as is, a view's arrays
+    as numpy copies)."""
+    new = {k: v for k, v in state.items() if k not in ("keys", "values_tile", "views")}
     new["device"] = torch.device(device)
     # copies: appends write into the port's tensors in place, and a CPU
     # tensor made with from_numpy would share the reference's buffer
@@ -182,6 +183,14 @@ def state_from_numpy(state: dict, device) -> dict:
     if state.get("row_map") is not None:
         new["row_map"] = np.asarray(state["row_map"], np.int64)
     new["_written"] = [state["n_rows"]]
+    if "views" in state:
+        vs = state["views"]
+        new["views"] = {
+            "block_sums": np.array(vs["block_sums"], np.float32),
+            "block_n": int(vs["block_n"]),
+            "n_rows": int(vs["n_rows"]),
+            "run_packed": [np.array(p, np.int64) for p in vs["run_packed"]],
+        }
     return new
 
 

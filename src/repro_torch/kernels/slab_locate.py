@@ -17,9 +17,12 @@ key lanes int32 ``[K_pad, N]``, value tile float32 ``[V_pad, N]``, per-query
 lane bounds int32 ``[Q, K_ex]`` with ``K_ex = sum(col_parts)`` (residual
 ``hi`` exclusive, slab ``hi`` inclusive), row windows int32 ``[Q, 2]`` and a
 value-row selector int32 ``[Q]``. A query with a ``(0, 0)`` window
-contributes nothing. The float sums follow the parity contract in
-``csrc/scan_locate.cu``: deterministic, 8192-row block partials folded in
-ascending block order.
+contributes nothing. The float sums follow the sum contract of
+``block_agg``: per query, one float32 partial per 8192-row block, folded
+strictly sequentially in ascending block order; on the card the partials
+come from the in-block order of ``csrc/predicates.cuh``, on the CPU from
+``block_agg.block_partials``. Both are deterministic, and the view
+kernels reduce a block the same way.
 """
 
 from __future__ import annotations
@@ -30,17 +33,17 @@ import numpy as np
 import torch
 
 from . import _build
+from .block_agg import BLOCK_ROWS, block_partials
 
 __all__ = [
     "BLOCK_ROWS",
+    "fold_blocks",
     "scan_agg_locate",
     "scan_agg_locate_plain",
     "select_compact",
     "select_compact_plain",
 ]
 
-#: Rows per block of the kernels' sum-order contract (``DEVICE_BLOCK_N``).
-BLOCK_ROWS = 8192
 
 _P, _I, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
 _SCAN_SIG = {
@@ -121,17 +124,29 @@ def _window(limits, n):
 _PLAIN_Q_CHUNK = 16
 
 
+def fold_blocks(parts: torch.Tensor) -> torch.Tensor:
+    """float32 ``[Q]``: each row of the ``[Q, n_blocks]`` block partials
+    folded strictly sequentially in ascending block order, starting from
+    0.0 (the fused scan's second pass; ``torch.sum`` and ``torch.cumsum``
+    promise no such order)."""
+    acc = torch.zeros(parts.shape[0], dtype=torch.float32, device=parts.device)
+    for b in range(parts.shape[1]):
+        acc = acc + parts[:, b]
+    return acc
+
+
 def scan_agg_locate_plain(
     keys, values, res_lo, res_hi, slab_lo, slab_hi, limits, value_sel, *, col_parts
 ):
     """Plain PyTorch version of :func:`scan_agg_locate`: whole-array masks
-    per chunk of queries. Returns ``(sums f32[Q], matched i32[Q],
-    slab_rows i32[Q])``."""
+    per chunk of queries; sums as block partials (``block_partials``)
+    folded in ascending block order. Returns ``(sums f32[Q], matched
+    i32[Q], slab_rows i32[Q])``."""
     col_parts = _col_parts(col_parts, res_lo.shape[1])
     n_lanes = sum(col_parts)
     n = keys.shape[1]
     q = res_lo.shape[0]
-    sums = torch.zeros(q, dtype=torch.float32, device=keys.device)
+    parts = torch.zeros((q, -(-n // BLOCK_ROWS)), dtype=torch.float32, device=keys.device)
     matched = torch.zeros(q, dtype=torch.int32, device=keys.device)
     slab_rows = torch.zeros(q, dtype=torch.int32, device=keys.device)
     n_vals = values.shape[0]
@@ -144,10 +159,10 @@ def scan_agg_locate_plain(
         in_range = (sel >= 0) & (sel < n_vals)
         vq = values[sel.clamp(0, n_vals - 1)]
         vq = torch.where(match & in_range[:, None], vq, torch.zeros((), dtype=vq.dtype, device=vq.device))
-        sums[s:e] = vq.sum(dim=1)
+        parts[s:e] = block_partials(vq)
         matched[s:e] = match.sum(dim=1, dtype=torch.int32)
         slab_rows[s:e] = (valid & ge & le).sum(dim=1, dtype=torch.int32)
-    return sums, matched, slab_rows
+    return fold_blocks(parts), matched, slab_rows
 
 
 def scan_agg_locate(

@@ -8,8 +8,9 @@ PyTorch is installed:
 
 Counts, indices, permutations and histograms must equal the plain
 versions' on the same CUDA tensors; float32 sums agree within rtol 1e-5 /
-atol 1e-3 (the kernels fold 8192-row block partials in another order than
-the plain version's whole-row sums).
+atol 1e-3 (the kernels reduce a block in another order than the plain
+versions). On the card, view-served sums equal the fused scan's bit for
+bit, on schemas whose staging tile differs.
 """
 
 import numpy as np
@@ -20,7 +21,15 @@ import repro_torch.core as T
 import repro_torch.kernels as K
 from repro_torch.core.storage.memtable import sort_run
 from repro_torch.core.tpch import generate_orders, orders_schema
+from repro_torch.core.storage.views import query_view_eligible, verify_views
 from repro_torch.kernels import ops
+from repro_torch.kernels.block_agg import (
+    block_sums,
+    block_sums_plain,
+    boundary_block_sums,
+    boundary_block_sums_plain,
+    scan_tile,
+)
 from repro_torch.kernels.ecdf_hist import ecdf_hist, ecdf_hist_plain
 from repro_torch.kernels.merge_runs import merge_run_positions, merge_run_positions_plain
 from repro_torch.kernels.slab_locate import (
@@ -34,6 +43,10 @@ SCHEMAS = {
     "narrow": ({"a": 7, "b": 9, "c": 5}, ("b", "a", "c")),
     "wide": ({"a": 6, "w": 45, "c": 5}, ("a", "w", "c")),
 }
+# eight key lanes and fifteen value columns plus the ones row: 24 staged
+# words a row, so the fused scan's staging tile (and with it the in-block
+# order) is 1024 rows
+TILE_1024 = ({f"k{i}": 7 for i in range(8)}, tuple(f"k{i}" for i in range(8)), 15)
 
 
 @pytest.fixture
@@ -173,3 +186,126 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda_device):
         tb = engines["cpu"]._table(engines["cpu"].column_families["o"], r)
         assert torch.equal(ta._device["keys"].cpu(), tb._device["keys"])
         assert torch.equal(ta._device["values_tile"].cpu(), tb._device["values_tile"])
+
+
+def _view_table(kind, n, seed, device):
+    """A resident table with a view: the narrow or wide schema with two
+    value columns, or TILE_1024's."""
+    if kind == "tile1024":
+        bits, layout, n_vals = TILE_1024
+    else:
+        (bits, layout), n_vals = SCHEMAS[kind], 2
+    rng = np.random.default_rng(seed)
+    kc = {c: rng.integers(0, 1 << min(b, 6), n, dtype=np.int64) for c, b in bits.items()}
+    vc = {f"v{i}": rng.uniform(-10.0, 100.0, n) for i in range(n_vals)}
+    t = T.SortedTable.from_columns(kc, vc, layout, T.KeySchema(dict(bits)))
+    return t.place_on_device(device).build_views(), bits, n_vals
+
+
+def _view_queries(layout, bits, n_vals, n_q, seed):
+    """View-eligible sums and counts on ``layout``: an equality prefix and
+    at most one range, inside the columns' generated domains."""
+    rng = np.random.default_rng(seed)
+    top = {c: 1 << min(b, 6) for c, b in bits.items()}
+    out = []
+    for i in range(n_q):
+        depth = int(rng.integers(0, min(len(layout), 4) + 1))
+        f = {c: T.Eq(int(rng.integers(0, top[c]))) for c in layout[:depth]}
+        if depth < len(layout) and rng.random() < 0.8:
+            c = layout[depth]
+            lo = int(rng.integers(0, top[c]))
+            f[c] = T.Range(lo, int(rng.integers(lo, top[c] + 1)))
+        agg = "count" if i % 4 == 3 else "sum"
+        out.append(T.Query(filters=f, agg=agg, value_col=f"v{i % n_vals}" if agg == "sum" else None))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["narrow", "wide", "tile1024"])
+def test_view_kernels_match_plain_and_the_fused_scan(cuda_device, kind):
+    """block_sums and boundary_block_sums against their plain versions on
+    the card, and every view-served answer equal to the fused kernel's on
+    the same table bit for bit: fresh, after two appends and after a
+    compaction."""
+    table, bits, n_vals = _view_table(kind, 60_000, 21, cuda_device)
+    st = table._device
+    k_ex, nv = sum(st["col_parts"]), st["n_value_rows"]
+    tile = scan_tile(k_ex, nv)
+    assert tile == (1024 if kind == "tile1024" else 2048)
+    args = dict(n_rows=st["n_rows"], block_n=8192, n_vals=nv)
+    got = block_sums(st["values_tile"], n_key_lanes=k_ex, **args)
+    want = block_sums_plain(st["values_tile"], n_rows=st["n_rows"], n_vals=nv)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    qs = _view_queries(table.layout, bits, n_vals, 120, 22)
+    assert all(query_view_eligible(q, table.layout) for q in qs)
+    rng = np.random.default_rng(23)
+    for step in range(4):
+        stats = {}
+        served = table.execute_many(qs, view_stats=stats)
+        assert stats["hits"] == len(qs)
+        fused = ops.table_execute_device_many(table, qs)
+        for q, a, b in zip(qs, served, fused):
+            assert a.value == b.value, (kind, step, q)
+            assert (a.rows_matched, a.rows_scanned) == (b.rows_matched, b.rows_scanned)
+        assert verify_views(table)
+        if step == 2:
+            table.compact_runs()
+            assert st is not table._device and table._device["n_runs"] == 1
+            continue
+        wk = {c: rng.integers(0, 1 << min(b, 6), 5000, dtype=np.int64) for c, b in bits.items()}
+        wv = {f"v{i}": rng.uniform(-10.0, 100.0, 5000) for i in range(n_vals)}
+        table = table.merge_run(sort_run(wk, wv, table.layout, table.schema))
+    # boundary rescans of pairs spanning the run windows, against plain
+    st = table._device
+    args = dict(n_rows=st["n_rows"], block_n=8192, n_vals=nv)
+    p = 64
+    blocks = rng.integers(0, -(-st["n_rows"] // 8192), p)
+    lo = np.sort(rng.integers(0, st["n_rows"] + 1, (p, 3)), axis=1)
+    hi = np.minimum(lo + rng.integers(0, 20_000, (p, 3)), st["n_rows"])
+    sel = rng.integers(0, nv, p)
+    got = boundary_block_sums(st["values_tile"], sel, blocks, lo, hi, n_key_lanes=k_ex, **args)
+    t = [torch.from_numpy(np.asarray(a, np.int32)).to(cuda_device) for a in (sel, blocks, lo, hi)]
+    want = boundary_block_sums_plain(st["values_tile"], *t, n_rows=st["n_rows"])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    assert torch.equal(got, boundary_block_sums(st["values_tile"], sel, blocks, lo, hi, n_key_lanes=k_ex, **args))
+
+
+@pytest.mark.cuda
+def test_views_engine_on_the_card_matches_the_fused_engine(cuda_device):
+    """A views column family and a plain one on the card, through writes
+    and a compaction: every view-served answer equal to the fused kernel's
+    on the replica that served it, the sums bit for bit; counts equal to
+    the plain column family's."""
+    kc, vc = generate_orders(0.02, seed=6)
+    layouts = [("clerk", "orderdate", "custkey"), ("custkey", "orderdate", "clerk"),
+               ("orderdate", "clerk", "custkey")]
+    engines = {}
+    for views in (True, False):
+        eng = T.HREngine(n_nodes=6, device=cuda_device)
+        eng.create_column_family(
+            "o", kc, vc, replication_factor=3, layouts=layouts, schema=orders_schema(),
+            device_resident=True, views=views,
+        )
+        engines[views] = eng
+    wl = T.tpch.q1_q2_workload(n_instances=96, n_rows=len(kc["custkey"]), seed=7)
+    qs = list(wl.queries[:64]) + [T.Query(filters=q.filters, agg="count") for q in wl.queries[64:]]
+    kw, vw = generate_orders(0.004, seed=8)
+    for step in range(10):
+        sl = slice(step * 600, (step + 1) * 600)
+        for eng in engines.values():
+            eng.write("o", {c: v[sl] for c, v in kw.items()}, {c: v[sl] for c, v in vw.items()})
+        if step in (0, 7, 9):
+            ev = engines[True]
+            cf = ev.column_families["o"]
+            a, b = (engines[v].read_many("o", qs) for v in (True, False))
+            for q, (ra, pa), (rb, _) in zip(qs, a, b):
+                assert ra.rows_matched == rb.rows_matched
+                table = ev._table(cf, cf.replicas[pa.replica_id])
+                (fused,) = ops.table_execute_device_many(table, [q])
+                assert (ra.value, ra.rows_matched, ra.rows_scanned) == (
+                    fused.value, fused.rows_matched, fused.rows_scanned
+                )
+    ev = engines[True]
+    assert ev.stats["view_hits"] > 0 and ev.stats["view_rebuilds"] >= 3
+    for r in ev.column_families["o"].replicas:
+        assert verify_views(ev._table(ev.column_families["o"], r))

@@ -282,7 +282,7 @@ def test_features_outside_the_slice_raise(engines):
     kc, vc = generate_orders(0.001, seed=1)
     eng = T.HREngine(n_nodes=3, device="cpu")
     schema = T.KeySchema(dict(orders_schema().bits))
-    for kwargs in ({"views": True}, {"partitions": 2}):
+    for kwargs in ({"views": True, "device_resident": True, "partitions": 2}, {"partitions": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             eng.create_column_family("x", kc, vc, replication_factor=2, schema=schema, **kwargs)
     q = _queries(T, wl)[0]
