@@ -22,15 +22,32 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 selects), one repeated batch (result-cache hits), a batch
                 of wide queries and 16 scalar reads; 64 + 8 answers held
                 against a brute-force numpy pass over the generated rows
-  5. writes     8 write-through writes of 20,000 rows (the 8th trips the
+  5. row_slab   the row-slab read path on the three replicas while each
+                holds one sorted run, its launch counts from 0: per replica,
+                a fresh batch of 256 (128 sums, 128 counts) located by
+                slab_many (the binary-search kernel, equal to the host
+                searchsorted), scanned by table_scan_device_many on both
+                grids (queries outer on the 128 sums) and with slabs=None,
+                and one Q = 1 table_scan_device; every answer against the
+                brute-force oracle. Then each of the three kernels against
+                its plain version on the same CUDA tensors (slabs equal,
+                counts equal, sums within rtol 1e-5 / atol 1e-3), timed
+                beside its bound and, for slab_locate, torch.searchsorted
+  6. batched_read  repro_torch.bench.batched_read.run_device on one
+                replica of the SF 5 rows, batch sizes 16, 64 and 256: the
+                numpy, qgrid, rowgrid, rowgrid-over-device-slabs and fused
+                engines, cross-checked, then timed in queries per second
+  7. writes     8 write-through writes of 20,000 rows (the 8th trips the
                 compaction policy's max_runs), resident state vs a fresh
-                build, 2 more writes, reads checked again over all rows
-  6. groups     one fresh read_many batch of 256; then the fused scan and
+                build, 2 more writes, reads checked again over all rows;
+                on the appended run stacks slab_many launches nothing and
+                table_scan_device_many raises
+  8. groups     one fresh read_many batch of 256; then the fused scan and
                 the select compaction on each replica group that batch
                 formed (the launches read_many makes), each vs its plain
                 version: counts and indices equal, sums within rtol 1e-5 /
                 atol 1e-3; per-group times and bounds, summed per batch
-  7. views      CREATE "orders_v" on the same rows with views=True (same
+  9. views      CREATE "orders_v" on the same rows with views=True (same
                 layouts, every view verified), the same 4 batches, the
                 wide batch and scalar reads (most sums and counts served
                 by the views), the same 10 writes (the compaction rebuilds
@@ -40,23 +57,27 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 view-served answer against the fused kernel on the same
                 replica table, bit for bit, before the writes, after the
                 compaction and after the last write
-  8. view_kernels  block_sums on a full SF 5 tile (whole and a flush's
+  10. view_kernels  block_sums on a full SF 5 tile (whole and a flush's
                 tail) and boundary_block_sums on the pairs one fresh batch
                 forms, each vs its plain version; times, bounds, the
                 library yardstick; then the bit identity of view and fused
                 scan on a table whose schema shrinks the staging tile
-  9. breakdown  one fresh batch on each column family: the engine's spans
+  11. breakdown  one fresh batch on each column family: the engine's spans
                 on the host clock, and a second under torch.profiler
 Every kernel wrapper's launch count is set to 0 just before phase 3 and
-read after phase 5, and again just before phase 7 and after it; each
-kernel must have launched on its path (the view kernels on phase 7's).
+read after phase 7, just before phase 5 and after it, just before phase 6
+and after it, and just before phase 9 and after it; phases 5 and 6 count
+apart and their counts are restored after them, so the main path's counts
+hold phases 3, 4 and 7. Each kernel must have launched on its path (the
+row-slab kernels on phase 5's, the view kernels on phase 9's); the row-slab
+line reports phase 6's launches beside phase 5's.
 The oracle is a brute-force pass over every generated row on the card
 (plain PyTorch masks and float64 sums); checks that launch kernels
 (verify_views, the fused comparisons) leave the launch counts untouched.
 
 The standard output ends with the kernels line, the per-phase wall times
-and per-layer numbers, the views line, the card's name and power limit,
-and ``{"ok": true, "device": ...}``.
+and per-layer numbers, the views line, the row-slab line, the batched-read
+line, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``--sf`` and ``--seed`` change the scale factor and the data seed).
@@ -113,10 +134,23 @@ KERNEL_INFO = {
         "src/repro_torch/csrc/block_sums.cu",
         "src/repro/kernels/block_agg.py:104",
     ),
+    "slab_locate": (
+        "src/repro_torch/csrc/slab_rank.cu",
+        "src/repro/kernels/slab_locate.py:155",
+    ),
+    "scan_agg_rowstream": (
+        "src/repro_torch/csrc/scan_agg.cu",
+        "src/repro/kernels/scan_agg.py:85",
+    ),
+    "scan_agg_qgrid": (
+        "src/repro_torch/csrc/scan_agg.cu",
+        "src/repro/kernels/scan_agg.py:279",
+    ),
 }
 # the kernels each path must launch
 ORDERS_KERNELS = ("scan_agg_locate", "select_compact", "merge_run_positions", "ecdf_hist")
 VIEW_KERNELS = ("block_sums", "boundary_block_sums")
+ROW_SLAB_KERNELS = ("slab_locate", "scan_agg_rowstream", "scan_agg_qgrid")
 
 
 def fail(msg: str) -> None:
@@ -277,6 +311,23 @@ def uncounted(fn, *args):
     saved = {name: k.launches for name, k in K.KERNELS.items()}
     try:
         return fn(*args)
+    finally:
+        for name, k in K.KERNELS.items():
+            k.launches = saved[name]
+
+
+def own_counts(fn, *args):
+    """``fn(*args)`` with every kernel's launch count from 0, the counts
+    before restored afterwards: a path whose launches are not the main
+    path's. Returns the result and the launches ``fn`` made."""
+    import repro_torch.kernels as K
+
+    saved = {name: k.launches for name, k in K.KERNELS.items()}
+    for k in K.KERNELS.values():
+        k.launches = 0
+    try:
+        out = fn(*args)
+        return out, {name: k.launches for name, k in K.KERNELS.items()}
     finally:
         for name, k in K.KERNELS.items():
             k.launches = saved[name]
@@ -488,6 +539,211 @@ def group_phase(eng, cf_name, batch, dev) -> tuple[dict, dict]:
     }
     torch.cuda.synchronize()
     return report, layer
+
+
+def row_slab_batch(batch):
+    """The fresh batch with its selects turned into counts: the row-slab
+    scans serve sums and counts only."""
+    import repro_torch.core as T
+
+    return [q if q.agg != "select" else T.Query(filters=q.filters, agg="count") for q in batch]
+
+
+def host_slabs(table, batch) -> np.ndarray:
+    """The host searchsorted's slabs: ``slab_many`` of a host twin."""
+    import repro_torch.core as T
+
+    return T.SortedTable(table.layout, table.schema, table.key_cols, table.value_cols, table.packed).slab_many(batch)
+
+
+def row_slab_phase(eng, cf_name, batch, oracle, dev) -> dict:
+    """The row-slab read path on every replica of ``cf_name`` while each
+    holds one sorted run: ``slab_many`` on the device against the host
+    searchsorted, ``table_scan_device_many`` on both grids and with
+    ``slabs=None``, and one ``table_scan_device``, every answer against the
+    oracle. Returns the phase's walls."""
+    from repro_torch.kernels import ops
+
+    cf = eng.column_families[cf_name]
+    sum_idx = [i for i, q in enumerate(batch) if q.agg == "sum"]
+    sums = [batch[i] for i in sum_idx]
+    walls = []
+    for r in cf.replicas:
+        table = eng._table(cf, r)
+        check(table._device["n_runs"] == 1, f"replica {r.replica_id} holds more than one run")
+        what = f"row_slab (replica {r.replica_id})"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slabs = table.slab_many(batch)
+        t1 = time.perf_counter()
+        rows = ops.table_scan_device_many(table, batch, slabs=slabs)
+        t2 = time.perf_counter()
+        qrows = ops.table_scan_device_many(table, sums, slabs=slabs[sum_idx], grid="queries_outer")
+        t3 = time.perf_counter()
+        located = ops.table_scan_device_many(table, batch)
+        t4 = time.perf_counter()
+        one = ops.table_scan_device(table, batch[0])
+        walls.append(dict(
+            replica=r.replica_id, slab_many_ms=(t1 - t0) * 1e3, rows_outer_ms=(t2 - t1) * 1e3,
+            queries_outer_ms=(t3 - t2) * 1e3, rows_outer_device_slabs_ms=(t4 - t3) * 1e3,
+        ))
+        check(np.array_equal(slabs, host_slabs(table, batch)), f"{what}: slab_many differs from the host searchsorted")
+        check(located == rows, f"{what}: slabs=None answers differ from the located slabs'")
+        check(one == rows[0], f"{what}: table_scan_device differs from the batch")
+        for i, (q, (value, count)) in enumerate(zip(batch, rows)):
+            n_match, want = oracle.answer(q, cf.schema)
+            check(count == n_match, f"{what} query {i}: count {count} != {n_match}")
+            if q.agg == "sum":
+                check(math.isclose(value, want, rel_tol=RTOL, abs_tol=ATOL), f"{what} query {i}: sum {value} != {want}")
+            else:
+                check(value == n_match, f"{what} query {i}: count value {value} != {n_match}")
+        check([c for _, c in qrows] == [rows[i][1] for i in sum_idx], f"{what}: queries-outer counts differ")
+        for (a, _), i in zip(qrows, sum_idx):
+            check(math.isclose(a, rows[i][0], rel_tol=RTOL, abs_tol=ATOL), f"{what}: queries-outer sum {a} != {rows[i][0]}")
+    torch.cuda.synchronize()
+    return dict(queries=len(batch), sums=len(sums), answers_checked=len(batch) * len(walls), walls=walls)
+
+
+def union_rows(slabs: np.ndarray) -> int:
+    """Rows covered by the union of the ``[lo, hi)`` slabs."""
+    total, end = 0, -1
+    for lo, hi in sorted((int(a), int(b)) for a, b in slabs if b > a):
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total
+
+
+def slab_scan_work(slabs, sel, lanes) -> tuple[float, float]:
+    """Bytes and operations a row-slab scan needs on these inputs: the key
+    lanes of every row some slab covers, each value row over the rows its
+    queries' slabs cover, the operands and the output once; the predicate
+    and the sum for every (query, row) pair inside a slab."""
+    q = len(sel)
+    key_bytes = 4 * lanes * union_rows(slabs)
+    val_bytes = sum(4 * union_rows(slabs[sel == v]) for v in np.unique(sel))
+    pairs = float(np.clip(slabs[:, 1] - slabs[:, 0], 0, None).sum())
+    return key_bytes + val_bytes + q * (8 * lanes + 12) + 8 * q, pairs * (2 * lanes + 4)
+
+
+def row_slab_kernel_phase(eng, cf_name, batch, dev) -> dict:
+    """The three row-slab kernels on each replica's launches of the
+    row_slab phase, against their plain versions on the same CUDA tensors,
+    timed beside their bounds (sums over the three replicas' launches) and,
+    for slab_locate, ``torch.searchsorted`` on the packed key. Returns the
+    kernels' rows and, per replica, the key bytes the queries-outer grid
+    reads by design."""
+    from repro_torch.core.table import slab_bounds_many
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.scan_agg import (
+        scan_agg_qgrid, scan_agg_qgrid_plain, scan_agg_rowstream, scan_agg_rowstream_plain,
+    )
+    from repro_torch.kernels.slab_locate import slab_locate, slab_locate_plain
+
+    cf = eng.column_families[cf_name]
+    sum_idx = [i for i, q in enumerate(batch) if q.agg == "sum"]
+    rows = {name: [] for name in ROW_SLAB_KERNELS}
+    by_design = []  # the queries-outer grid's key traffic, re-read per query
+    for r in cf.replicas:
+        table = eng._table(cf, r)
+        st = table._device
+        cp, n_vals, lanes = st["col_parts"], st["n_value_rows"], sum(st["col_parts"])
+        keys, tile = st["keys"], st["values_tile"]
+        d = ops.device_query_operands(table, batch)
+        what = f"replica {r.replica_id}"
+
+        # slab_locate, and torch.searchsorted on the packed key as yardstick
+        loc_args = (keys, d["slab_lo"], d["slab_hi"], d["limits"])
+
+        def loc(a=loc_args):
+            return slab_locate(*a)
+
+        def loc_plain(a=loc_args):
+            return slab_locate_plain(*a)
+
+        packed = torch.from_numpy(table.packed).to(dev)
+        bnd = slab_bounds_many(batch, table.layout, table.schema)
+        bnd[:, 1] += 1  # inclusive hi, side="right" == hi + 1, side="left"
+        bnd_t = torch.from_numpy(bnd).to(dev)
+
+        def loc_library(packed=packed, bnd_t=bnd_t):
+            return torch.searchsorted(packed, bnd_t)
+
+        got, want = uncounted(loc), loc_plain()
+        check(torch.equal(got, want), f"slab_locate ({what}): ranks differ from plain")
+        check(torch.equal(got.long(), loc_library()), f"slab_locate ({what}): ranks differ from torch.searchsorted")
+        host = host_slabs(table, batch)
+        check(np.array_equal(got.cpu().numpy(), host), f"slab_locate ({what}): ranks differ from the host searchsorted")
+        win = (d["limits"][:, 1] - d["limits"][:, 0]).cpu().numpy().astype(np.float64)
+        probes = float(2 * np.ceil(np.log2(win + 1)).sum())
+        work = (4 * lanes * probes + len(batch) * (8 * lanes + 8) + 8 * len(batch), 2 * lanes * probes)
+        rows["slab_locate"].append(dict(
+            replica=r.replica_id, queries=len(batch), max_abs_err=max_abs_diff(got, want),
+            ms=uncounted(time_ms, loc, 20), plain_ms=time_ms(loc_plain, 2), bound_ms=bound(*work)[0],
+            library_ms=time_ms(loc_library, 20), work=work,
+        ))
+
+        # rows outer, on the located slabs
+        slabs = got
+        s_args = (keys, tile, d["res_lo"], d["res_hi"], slabs, d["sel"])
+
+        def rs(a=s_args, cp=cp, n_vals=n_vals):
+            return scan_agg_rowstream(*a, col_parts=cp, n_vals=n_vals)
+
+        def rs_plain(a=s_args, cp=cp, n_vals=n_vals):
+            return scan_agg_rowstream_plain(a[0], a[1][:n_vals], *a[2:], col_parts=cp)
+
+        ks, kp = uncounted(rs), rs_plain()
+        check(torch.equal(ks[:, 1], kp[:, 1]), f"scan_agg_rowstream ({what}): counts differ from plain")
+        check(bool(torch.allclose(ks[:, 0], kp[:, 0], rtol=RTOL, atol=ATOL)), f"scan_agg_rowstream ({what}): sums differ from plain")
+        check(torch.equal(ks, uncounted(rs)), f"scan_agg_rowstream ({what}): not deterministic")
+        sel_np = d["sel"].cpu().numpy()
+        work = slab_scan_work(host, sel_np, lanes)
+        rows["scan_agg_rowstream"].append(dict(
+            replica=r.replica_id, queries=len(batch), max_abs_err=max_abs_diff(ks[:, 0], kp[:, 0]),
+            ms=uncounted(time_ms, rs, 10), plain_ms=time_ms(rs_plain, 2), bound_ms=bound(*work)[0],
+            library_ms=None, work=work,
+        ))
+
+        # queries outer, on the batch's sums (one value row)
+        idx = torch.tensor(sum_idx, device=dev)
+        row = tile[int(sel_np[sum_idx[0]])]
+        g_args = (keys, row, d["res_lo"][idx].contiguous(), d["res_hi"][idx].contiguous(), slabs[idx].contiguous())
+
+        def qg(a=g_args):
+            return scan_agg_qgrid(*a)
+
+        def qg_plain(a=g_args):
+            return scan_agg_qgrid_plain(*a)
+
+        kq, kqp = uncounted(qg), qg_plain()
+        check(torch.equal(kq[:, 1], kqp[:, 1]), f"scan_agg_qgrid ({what}): counts differ from plain")
+        check(bool(torch.allclose(kq[:, 0], kqp[:, 0], rtol=RTOL, atol=ATOL)), f"scan_agg_qgrid ({what}): sums differ from plain")
+        check(torch.equal(kq[:, 1], ks[idx, 1]), f"scan_agg_qgrid ({what}): counts differ from rows outer")
+        work = slab_scan_work(host[sum_idx], sel_np[sum_idx], lanes)
+        design = len(sum_idx) * keys.shape[1] * (lanes + 1) * 4
+        by_design.append(dict(replica=r.replica_id, bytes=design, bytes_ms=design / PEAK_BYTES_PER_S * 1e3))
+        rows["scan_agg_qgrid"].append(dict(
+            replica=r.replica_id, queries=len(sum_idx), max_abs_err=max_abs_diff(kq[:, 0], kqp[:, 0]),
+            ms=uncounted(time_ms, qg, 3), plain_ms=time_ms(qg_plain, 2), bound_ms=bound(*work)[0],
+            library_ms=None, work=work,
+        ))
+        del packed, bnd_t
+
+    report = {}
+    for name, per in rows.items():
+        b, by = bound(sum(x["work"][0] for x in per), sum(x["work"][1] for x in per))
+        lib = [x["library_ms"] for x in per]
+        report[name] = dict(
+            max_abs_err=max(x["max_abs_err"] for x in per), ms=sum(x["ms"] for x in per),
+            plain_ms=sum(x["plain_ms"] for x in per), bound_ms=b, bound_by=by,
+            library_ms=None if None in lib else sum(lib),
+            per=f"batch of {per[0]['queries']} on each of {len(per)} replicas ({len(per)} launches)",
+            groups=[{k: v for k, v in x.items() if k != "work"} for x in per],
+        )
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return report, by_design
 
 
 def views_phase(base_eng, key_cols, value_cols, writes, batches, oracles, dev) -> dict:
@@ -907,7 +1163,32 @@ def run(args, dev) -> None:
     phases.run("reads", reads)
     print(f"read_many batch ms (host clock): {[round(x, 3) for x in batch_ms]}", flush=True)
 
-    # 5. writes, device compaction, reads over every row
+    # 5. the row-slab read path while every replica holds one sorted run
+    slab_batch = row_slab_batch(read_batches(n_rows, args.seed + 4)[0])
+
+    def row_slab():
+        info, launches = own_counts(row_slab_phase, eng, "orders", slab_batch, oracles[0], dev)
+        for name in ROW_SLAB_KERNELS:
+            check(launches[name] > 0, f"kernel {name} was not launched on the row-slab path")
+        info["launches"] = launches
+        rows, info["qgrid_key_bytes_by_design"] = row_slab_kernel_phase(eng, "orders", slab_batch, dev)
+        report.update(rows)
+        return info
+
+    row_slab_info = phases.run("row_slab", row_slab)
+
+    # 6. the port's batched-read benchmark on one SF-scale replica, its
+    # launches (a table of its own) counted apart from the main path's
+    from repro_torch.bench.batched_read import run_device
+
+    trajectory, bench_launches = phases.run(
+        "batched_read", own_counts, lambda: run_device(
+            n_rows=n_rows, batch_sizes=(16, 64, 256), seed=args.seed, repeats=3, numpy_repeats=1, device=dev,
+        )
+    )
+    row_slab_info["batched_read_launches"] = {name: n for name, n in bench_launches.items() if n}
+
+    # 7. writes, device compaction, reads over every row
     def timed_write(wk, wv):
         t = time.perf_counter()
         eng.write("orders", wk, wv)
@@ -942,24 +1223,38 @@ def run(args, dev) -> None:
         wide = wide_batch()
         check_answers(eng, "orders", list(zip(wide, eng.read_many("orders", wide))), oracles[2], "wide after writes")
         check(cf.stats.n_rows == n_rows + len(writes) * WRITE_ROWS, "statistics missed rows")
+        # appended run stacks: slab_many takes the host path, the scans refuse
+        for r in cf.replicas:
+            table = eng._table(cf, r)
+            before = {name: fn.launches for name, fn in K.KERNELS.items()}
+            check(np.array_equal(table.slab_many(slab_batch), host_slabs(table, slab_batch)), "slab_many after writes")
+            check({name: fn.launches for name, fn in K.KERNELS.items()} == before, "slab_many launched on a run stack")
+            try:
+                ops.table_scan_device_many(table, slab_batch)
+            except ValueError as e:
+                check("single sorted run" in str(e), f"table_scan_device_many on a run stack: {e}")
+            else:
+                fail(f"table_scan_device_many served replica {r.replica_id}'s run stack")
 
     phases.run("writes", writes_phase)
 
     launches = {name: fn.launches for name, fn in K.KERNELS.items()}
     for name in ORDERS_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on the main path")
+    for name in ROW_SLAB_KERNELS:
+        launches[name] = row_slab_info["launches"][name]
     stats = eng.stats
     write_layer = {
         "replica_flushes": stats["memtable_flushes"], "compactions": stats["compactions"],
         "flush_wall_ms_per_replica_flush": stats["flush_wall_seconds"] * 1e3 / stats["memtable_flushes"],
     }
 
-    # 6. the read kernels on the replica groups of one fresh batch
+    # 8. the read kernels on the replica groups of one fresh batch
     fresh = read_batches(n_rows, args.seed + 3)[0]
     group_report, read_layer = phases.run("groups", group_phase, eng, "orders", fresh, dev)
     report.update(group_report)
 
-    # 7. the views path: its own launch counts, from 0
+    # 9. the views path: its own launch counts, from 0
     veng, views = phases.run(
         "views", views_phase, eng, key_cols, value_cols, writes, batches, oracles, dev
     )
@@ -967,16 +1262,16 @@ def run(args, dev) -> None:
         launches[name] = views["launches"][name]
     oracles.clear()
 
-    # 8. the view kernels against their plain versions
+    # 10. the view kernels against their plain versions
     report.update(phases.run("view_kernels", view_kernel_phase, veng, read_batches(n_rows, args.seed + 3)[0], dev))
 
-    # 9. where a fresh batch's time goes, on both column families
+    # 11. where a fresh batch's time goes, on both column families
     where = phases.run(
         "breakdown", breakdown_phase, {"orders": (eng, "orders"), "orders_v": (veng, "orders_v")},
         n_rows, args.seed + 5,
     )
 
-    # 10. report
+    # 12. report
     small_tile = report.pop("small_tile")
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -993,6 +1288,8 @@ def run(args, dev) -> None:
         orders_v_batch_ms=[b["wall_ms"] for b in views["batches"]], **views,
         small_tile=small_tile, where_time=where,
     )}))
+    print(json.dumps({"row_slab": dict(card=card, **row_slab_info)}))
+    print(json.dumps({"batched_read": dict(card=card, **trajectory)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

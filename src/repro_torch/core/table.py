@@ -237,7 +237,8 @@ class SortedTable:
         (default ``cuda``): int32 key lanes — wide columns split into
         two — plus float32 value rows. Afterwards ``execute``/
         ``execute_many`` answer sum, count AND select queries from the
-        device. Raises ``ValueError`` naming the offending column if a
+        device, and ``slab_many`` locates slabs there while the tensors
+        hold one sorted run. Raises ``ValueError`` naming the offending column if a
         key column exceeds the two-lane 60-bit budget.
 
         Placement is *incremental*: ``merge_run`` appends each merged
@@ -413,15 +414,21 @@ class SortedTable:
         return lo, hi
 
     def slab_many(self, queries: Sequence[Query]) -> np.ndarray:
-        """Row index slabs ``int64[Q, 2]`` for a query batch: one
-        vectorized ``np.searchsorted`` over the packed bound array.
+        """Row index slabs ``int64[Q, 2]`` for a query batch.
 
-        The reference answers single-run resident tables here with its
-        binary-search kernel (``slab_locate_kernel``); that kernel is not
-        ported yet (ROADMAP Queue 1 item 6), so every table takes this host path,
-        which gives the same slabs. The device read path never calls it:
-        the fused kernel decides slab membership by key."""
-        bounds = slab_bounds_many(list(queries), self.layout, self.schema)
+        A resident table holding a single sorted run locates them on its
+        device with the binary-search kernel
+        (``kernels.ops.table_slab_locate_many``). Every other table (host
+        tables, and resident tensors with appended runs, whose device row
+        order is not sorted) takes one vectorized ``np.searchsorted`` over
+        the packed bound array; both give the same slabs. The fused read
+        path never calls this: it decides slab membership by key."""
+        queries = list(queries)
+        if queries and self._device is not None and self._device.get("n_runs", 1) == 1:
+            from ..kernels.ops import table_slab_locate_many
+
+            return table_slab_locate_many(self, queries)
+        bounds = slab_bounds_many(queries, self.layout, self.schema)
         lo = np.searchsorted(self.packed, bounds[:, 0], side="left")
         # inclusive upper key + side="right" ≡ scalar (hi + 1, side="left")
         # without the int64 wrap at 63-bit schemas

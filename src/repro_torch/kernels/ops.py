@@ -12,6 +12,15 @@ a sum/count/select batch from it: one fused locate+scan launch, plus one
 select-compaction launch when the batch has selects with matches.
 ``state_from_numpy`` turns a reference state (arrays as numpy) into the
 port's, so both implementations can be fed identical resident arrays.
+
+The row-slab read path: ``table_slab_locate_many`` gives a single-run
+resident table's row slabs from the binary-search kernel (the device half
+of ``SortedTable.slab_many``), and ``table_scan_device_many`` scans a
+batch over such slabs with the rows-outer or the queries-outer kernel
+(``scan_agg``), its counts in a float32 lane exact to 2**24 rows as the
+reference's; ``scan_agg``/``scan_agg_batched`` are the same scans on bare
+tensors. The fused path above supersedes them; they stay as the benchmark
+baselines of ``repro_torch.bench.batched_read``.
 """
 
 from __future__ import annotations
@@ -20,10 +29,12 @@ import numpy as np
 import torch
 
 from .merge_runs import merge_run_positions
-from .slab_locate import scan_agg_locate, select_compact
+from .scan_agg import scan_agg_qgrid, scan_agg_rowstream
+from .slab_locate import scan_agg_locate, select_compact, slab_locate
 
 __all__ = [
     "DEVICE_BLOCK_N",
+    "FLOAT32_EXACT_ROWS",
     "MAX_DEVICE_COL_BITS",
     "MAX_DEVICE_ROWS",
     "WIDE_LANE_BITS",
@@ -32,8 +43,13 @@ __all__ = [
     "device_query_operands",
     "device_state_append",
     "merge_device_runs",
+    "scan_agg",
+    "scan_agg_batched",
     "state_from_numpy",
     "table_execute_device_many",
+    "table_scan_device",
+    "table_scan_device_many",
+    "table_slab_locate_many",
 ]
 
 # A key lane is an int32; columns wider than this many bits are split
@@ -48,6 +64,11 @@ DEVICE_BLOCK_N = 8192
 
 # The kernels count matches in int32 and address rows with int32 indices.
 MAX_DEVICE_ROWS = (1 << 31) - DEVICE_BLOCK_N
+
+# The row-slab scans return their counts in a float32 lane, as the
+# reference's do: exact only to 2**24 rows. table_scan_device_many guards
+# it; the fused path counts in int32 and has no such cap.
+FLOAT32_EXACT_ROWS = 1 << 24
 
 
 def device_key_plan(table) -> tuple[int, ...]:
@@ -340,12 +361,17 @@ def device_query_operands(table, queries) -> dict:
         [value_rows[q.value_col] if q.agg == "sum" else state["ones_row"] for q in queries],
         np.int32,
     )
-    arrays = [*bounds, sel]
+    names = ("res_lo", "res_hi", "slab_lo", "slab_hi", "limits", "sel")
+    return dict(zip(names, _upload_int32([*bounds, sel], state["device"])))
+
+
+def _upload_int32(arrays, device) -> list:
+    """The host arrays as int32 tensors on ``device``, in one copy."""
     flat = np.concatenate([np.ascontiguousarray(a, np.int32).ravel() for a in arrays])
-    t = torch.from_numpy(flat).to(state["device"])
-    out, off = {}, 0
-    for name, a in zip(("res_lo", "res_hi", "slab_lo", "slab_hi", "limits", "sel"), arrays):
-        out[name] = t[off : off + a.size].view(a.shape)
+    t = torch.from_numpy(flat).to(device)
+    out, off = [], 0
+    for a in arrays:
+        out.append(t[off : off + a.size].view(a.shape))
         off += a.size
     return out
 
@@ -426,3 +452,150 @@ def table_execute_device_many(table, queries, *, trace=None) -> list:
         value = float(sums[i]) if q.agg == "sum" else float(matched[i])
         out.append(ScanResult(value, int(slab_rows[i]), int(matched[i]), selected.get(i)))
     return out
+
+
+# -- the row-slab read path ------------------------------------------------------
+
+
+def scan_agg(keys, values, col_lo, col_hi, slab) -> torch.Tensor:
+    """float32 ``[2]`` = (masked sum of ``values``, count) over the row
+    slab ``[slab[0], slab[1])`` with per-column residual bounds ``[lo,
+    hi)``: the Q = 1 launch of the rows-outer scan, on ``keys``' device."""
+    sel = torch.zeros(1, dtype=torch.int32, device=keys.device)
+    out = scan_agg_rowstream(
+        keys, values.reshape(1, -1), col_lo.reshape(1, -1), col_hi.reshape(1, -1),
+        slab.reshape(1, 2), sel, col_parts=(1,) * col_lo.numel(),
+    )
+    return out[0]
+
+
+def scan_agg_batched(
+    keys, values, col_lo, col_hi, slabs, value_sel=None, *, col_parts=None,
+    grid: str = "rows_outer",
+) -> torch.Tensor:
+    """float32 ``[Q, 2]``: per query, (masked sum, count) over its slab,
+    for a batch sharing one replica's columns, on ``keys``' device.
+
+    ``grid="rows_outer"`` (default) is :func:`scan_agg_rowstream`:
+    ``values`` may be a ``[V, N]`` tile with ``value_sel`` routing each
+    query to its row, and ``col_parts`` marks wide (two-lane) columns.
+    ``grid="queries_outer"`` is :func:`scan_agg_qgrid`, the benchmark
+    baseline: one value row and narrow columns only."""
+    if grid == "queries_outer":
+        if values.dim() != 1:
+            raise ValueError("queries_outer grid supports a single value row")
+        if value_sel is not None or (col_parts and any(p != 1 for p in col_parts)):
+            raise ValueError(
+                "queries_outer grid supports neither value selectors nor wide columns"
+            )
+        return scan_agg_qgrid(keys, values, col_lo, col_hi, slabs)
+    if grid != "rows_outer":
+        raise ValueError(f"unknown grid {grid!r}")
+    if values.dim() == 1:
+        values = values[None, :]
+    q, k_ex = col_lo.shape
+    if value_sel is None:
+        value_sel = torch.zeros(q, dtype=torch.int32, device=keys.device)
+    if col_parts is None:
+        col_parts = (1,) * k_ex
+    return scan_agg_rowstream(keys, values, col_lo, col_hi, slabs, value_sel, col_parts=col_parts)
+
+
+def table_scan_device(table, query) -> tuple[float, float]:
+    """``table_scan_device_many`` of one sum or count query: ``(value,
+    count)``."""
+    (out,) = table_scan_device_many(table, [query])
+    return out
+
+
+def table_scan_device_many(
+    table, queries, *, slabs=None, grid: str = "rows_outer"
+) -> list[tuple[float, float]]:
+    """Sum and count queries against one replica over row slabs, in one
+    launch: ``[(value, count)]`` in batch order.
+
+    The table must be device-resident and hold a single sorted run, since
+    the slabs index the sorted order. ``slabs`` takes ``slab_many`` output a caller already has; without
+    it, ``table.slab_many`` locates them (the binary-search kernel on a
+    resident table). ``grid="rows_outer"`` serves any mix of sums over
+    value columns and counts through a per-query value-row selector;
+    ``grid="queries_outer"`` (the baseline) takes uniform-aggregation,
+    narrow-key batches only."""
+    queries = list(queries)
+    if not queries:
+        return []
+    if table.n_rows > FLOAT32_EXACT_ROWS:
+        raise ValueError(
+            f"table has {table.n_rows} rows but the float32 count lane of "
+            f"table_scan_device_many is exact only to {FLOAT32_EXACT_ROWS} "
+            "matches; use table_execute_device_many (int32 counts)"
+        )
+    for q in queries:
+        if q.agg not in ("sum", "count"):
+            raise ValueError(f"device path supports sum/count aggs, got {q.agg!r}")
+        if q.agg == "sum" and q.value_col is None:
+            raise ValueError("sum aggregation requires value_col")
+    state = getattr(table, "_device", None)
+    if state is None:
+        raise ValueError("table_scan_device_many needs a device-resident table")
+    if state.get("n_runs", 1) > 1:
+        raise ValueError(
+            "device state holds appended write runs (device row order is "
+            "not sorted); row-slab scans need a single sorted run — use "
+            "table_execute_device_many or compact_runs()"
+        )
+    col_parts = state["col_parts"]
+    if slabs is None:
+        slabs = table.slab_many(queries)
+    value_rows: dict[str, int] = state["value_rows"]
+    sel = np.array(
+        [value_rows[q.value_col] if q.agg == "sum" else state["ones_row"] for q in queries],
+        np.int32,
+    )
+    bounds = np.array(
+        [[q.filter_bounds(table.schema, c) for c in table.layout] for q in queries],
+        np.int64,
+    )  # (Q, K, 2) — lo inclusive, hi exclusive
+    lo, hi = _expand_bounds(bounds, col_parts)
+    slabs32 = np.asarray(slabs, np.int64).astype(np.int32)
+    if grid == "queries_outer":
+        if len(set(sel)) > 1 or any(p != 1 for p in col_parts):
+            raise ValueError("queries_outer grid requires a uniform-agg, narrow-key batch")
+    elif grid != "rows_outer":
+        raise ValueError(f"unknown grid {grid!r}")
+    t_lo, t_hi, t_slabs, t_sel = _upload_int32([lo, hi, slabs32, sel], state["device"])
+    if grid == "queries_outer":
+        out = scan_agg_qgrid(state["keys"], state["values_tile"][int(sel[0])], t_lo, t_hi, t_slabs)
+    else:
+        out = scan_agg_rowstream(
+            state["keys"], state["values_tile"], t_lo, t_hi, t_slabs, t_sel,
+            col_parts=col_parts, n_vals=state["n_value_rows"],
+        )
+    out = out.cpu().numpy()
+    return [
+        (float(s) if q.agg == "sum" else float(c), float(c))
+        for q, (s, c) in zip(queries, out)
+    ]
+
+
+def table_slab_locate_many(table, queries) -> np.ndarray:
+    """Device-side ``SortedTable.slab_many``: int64 ``[Q, 2]`` row slabs
+    from the binary-search kernel (:func:`slab_locate`) over the resident
+    key lanes. The resident tensors must hold a single sorted run: with
+    appended runs the device row order is not the table's."""
+    queries = list(queries)
+    state = getattr(table, "_device", None)
+    if state is None:
+        raise ValueError("table_slab_locate_many needs a device-resident table")
+    if state.get("n_runs", 1) > 1:
+        raise ValueError(
+            "device state holds appended write runs; slab ranks need a "
+            "single sorted run — use compact_runs()"
+        )
+    col_parts = state["col_parts"]
+    _, _, slab_lo, slab_hi, limits = _device_query_bounds(
+        table, queries, col_parts, state["n_rows"]
+    )
+    t_lo, t_hi, t_lim = _upload_int32([slab_lo, slab_hi, limits], state["device"])
+    out = slab_locate(state["keys"], t_lo, t_hi, t_lim)
+    return out.cpu().numpy().astype(np.int64)

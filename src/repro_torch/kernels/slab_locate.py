@@ -1,4 +1,5 @@
-"""Device read-path kernels: the fused locate+scan and select compaction.
+"""Device read-path kernels: the fused locate+scan, select compaction and
+slab location.
 
 ``scan_agg_locate`` — per query, one pass over the resident key lanes and
 value tile gives the float32 sum of the selected value row over rows
@@ -12,7 +13,12 @@ residual predicate inside its window, as one flat int32 array sized by the
 fused scan's match counts. CUDA tensors run ``csrc/select_compact.cu``;
 CPU tensors run :func:`select_compact_plain`.
 
-Both take the reference's operand layout (``repro/kernels/slab_locate.py``):
+``slab_locate`` — per query, the two searchsorted ranks of its slab keys
+inside its row window of a sorted run: the rows below ``slab_lo`` and the
+rows at or below ``slab_hi``. CUDA tensors run ``csrc/slab_rank.cu``;
+CPU tensors run :func:`slab_locate_plain`.
+
+All take the reference's operand layout (``repro/kernels/slab_locate.py``):
 key lanes int32 ``[K_pad, N]``, value tile float32 ``[V_pad, N]``, per-query
 lane bounds int32 ``[Q, K_ex]`` with ``K_ex = sum(col_parts)`` (residual
 ``hi`` exclusive, slab ``hi`` inclusive), row windows int32 ``[Q, 2]`` and a
@@ -42,6 +48,8 @@ __all__ = [
     "scan_agg_locate_plain",
     "select_compact",
     "select_compact_plain",
+    "slab_locate",
+    "slab_locate_plain",
 ]
 
 
@@ -57,6 +65,7 @@ _SELECT_SIG = {
         _P, _I64, _I, _I, _U32, _P, _P, _P, _I, _P, _I, _P, _P, _P,
     ]
 }
+_RANK_SIG = {"slab_rank_launch": [_P, _I64, _I, _P, _P, _P, _I, _P, _P]}
 
 
 def _col_parts(col_parts, n_lanes_bound: int) -> tuple[int, ...]:
@@ -311,3 +320,60 @@ def select_compact(
 
 
 select_compact.launches = 0
+
+
+def slab_locate_plain(keys, slab_lo, slab_hi, limits):
+    """Plain PyTorch version of :func:`slab_locate`: the reference's rank
+    form, masked lexicographic counts over the whole window, per chunk of
+    queries."""
+    n = keys.shape[1]
+    q, k_ex = slab_lo.shape
+    out = torch.zeros((q, 2), dtype=torch.int32, device=keys.device)
+    for s in range(0, q, _PLAIN_Q_CHUNK):
+        e = min(q, s + _PLAIN_Q_CHUNK)
+        valid = _window(limits[s:e], n)
+        ge, le = _lex_masks(keys, slab_lo[s:e], slab_hi[s:e], k_ex)
+        out[s:e, 0] = (valid & ~ge).sum(dim=1, dtype=torch.int32)
+        out[s:e, 1] = (valid & le).sum(dim=1, dtype=torch.int32)
+    return out
+
+
+def slab_locate(
+    keys: torch.Tensor,  # int32[K_pad, N] key lanes, one sorted run
+    slab_lo: torch.Tensor,  # int32[Q, K_ex] lower slab key, inclusive
+    slab_hi: torch.Tensor,  # int32[Q, K_ex] upper slab key, INCLUSIVE
+    limits: torch.Tensor,  # int32[Q, 2] row window
+) -> torch.Tensor:
+    """int32 ``[Q, 2]``: per query, the window rows whose key tuple (the
+    first ``K_ex`` lanes) lies lexicographically below ``slab_lo`` and at
+    or below ``slab_hi``. Inside a sorted window these are
+    ``searchsorted`` left and right, less the window's start. An empty
+    query (``slab_hi`` lanes of -1, or a ``(0, 0)`` window) gives
+    ``(0, 0)``."""
+    device = keys.device
+    _check("keys", keys, torch.int32, 2, device)
+    for name, t in (("slab_lo", slab_lo), ("slab_hi", slab_hi), ("limits", limits)):
+        _check(name, t, torch.int32, 2, device)
+    q, k_ex = slab_lo.shape
+    if not 0 < k_ex <= keys.shape[0]:
+        raise ValueError(f"bounds cover {k_ex} lanes but keys carry {keys.shape[0]}")
+    if slab_hi.shape != (q, k_ex) or limits.shape != (q, 2):
+        raise ValueError("slab_hi must be [Q, K_ex] and limits [Q, 2]")
+    if device.type == "cpu":
+        return slab_locate_plain(keys, slab_lo, slab_hi, limits)
+    if device.type != "cuda":
+        raise ValueError(f"slab_locate runs on cuda or cpu tensors, got {device}")
+    out = torch.empty((q, 2), dtype=torch.int32, device=device)
+    if q == 0:
+        return out
+    lib = _build.load("slab_rank", _RANK_SIG)
+    code = lib.slab_rank_launch(
+        keys.data_ptr(), keys.shape[1], k_ex, slab_lo.data_ptr(), slab_hi.data_ptr(),
+        limits.data_ptr(), q, out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(code, "slab_rank_launch")
+    slab_locate.launches += 1
+    return out
+
+
+slab_locate.launches = 0

@@ -32,11 +32,19 @@ from repro_torch.kernels.block_agg import (
 )
 from repro_torch.kernels.ecdf_hist import ecdf_hist, ecdf_hist_plain
 from repro_torch.kernels.merge_runs import merge_run_positions, merge_run_positions_plain
+from repro_torch.kernels.scan_agg import (
+    scan_agg_qgrid,
+    scan_agg_qgrid_plain,
+    scan_agg_rowstream,
+    scan_agg_rowstream_plain,
+)
 from repro_torch.kernels.slab_locate import (
     scan_agg_locate,
     scan_agg_locate_plain,
     select_compact,
     select_compact_plain,
+    slab_locate,
+    slab_locate_plain,
 )
 
 SCHEMAS = {
@@ -309,3 +317,100 @@ def test_views_engine_on_the_card_matches_the_fused_engine(cuda_device):
     assert ev.stats["view_hits"] > 0 and ev.stats["view_rebuilds"] >= 3
     for r in ev.column_families["o"].replicas:
         assert verify_views(ev._table(ev.column_families["o"], r))
+
+
+# -- the row-slab read path ------------------------------------------------------------
+
+
+def _slab_operands(table, qs, device):
+    """Slab keys and windows (``ops._device_query_bounds``), residual
+    bounds, host slabs and the value-row selector, as int32 tensors."""
+    st = table._device
+    res_lo, res_hi, slab_lo, slab_hi, limits = ops._device_query_bounds(
+        table, qs, st["col_parts"], st["n_rows"]
+    )
+    host = T.SortedTable(table.layout, table.schema, table.key_cols, table.value_cols, table.packed)
+    slabs = host.slab_many(qs)
+    sel = [st["value_rows"][q.value_col] if q.agg == "sum" else st["ones_row"] for q in qs]
+    arrays = (res_lo, res_hi, slab_lo, slab_hi, limits, slabs, np.asarray(sel))
+    return [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schema", ["narrow", "wide"])
+def test_slab_locate_and_rowstream_match_plain(cuda_device, schema):
+    table, _ = _table(schema, 40_000, 21, cuda_device)
+    st = table._device
+    qs = [q for q in _queries(SCHEMAS[schema][0], 300, 22) if q.agg != "select"]
+    res_lo, res_hi, slab_lo, slab_hi, limits, slabs, sel = _slab_operands(table, qs, cuda_device)
+    cp, n_vals = st["col_parts"], st["n_value_rows"]
+    launches = K.KERNELS["slab_locate"].launches
+    got = slab_locate(st["keys"], slab_lo, slab_hi, limits)
+    assert K.KERNELS["slab_locate"].launches == launches + 1
+    assert torch.equal(got, slab_locate_plain(st["keys"], slab_lo, slab_hi, limits))
+    assert torch.equal(got.long(), slabs.long())  # == the host searchsorted
+    launches = K.KERNELS["scan_agg_rowstream"].launches
+    out = scan_agg_rowstream(st["keys"], st["values_tile"], res_lo, res_hi, slabs, sel, col_parts=cp, n_vals=n_vals)
+    assert K.KERNELS["scan_agg_rowstream"].launches == launches + 1
+    want = scan_agg_rowstream_plain(st["keys"], st["values_tile"][:n_vals], res_lo, res_hi, slabs, sel, col_parts=cp)
+    assert torch.equal(out[:, 1], want[:, 1])
+    torch.testing.assert_close(out[:, 0], want[:, 0], rtol=1e-5, atol=1e-3)
+    again = scan_agg_rowstream(st["keys"], st["values_tile"], res_lo, res_hi, slabs, sel, col_parts=cp, n_vals=n_vals)
+    assert torch.equal(out, again)  # deterministic sums
+    # arbitrary slabs and selectors, some outside the live value rows
+    rng = np.random.default_rng(23)
+    rnd = np.sort(rng.integers(0, st["n_rows"] + 1, (len(qs), 2)), axis=1).astype(np.int32)
+    rnd_t = torch.from_numpy(rnd).to(cuda_device)
+    sel2 = torch.from_numpy(rng.integers(-1, n_vals + 1, len(qs)).astype(np.int32)).to(cuda_device)
+    out = scan_agg_rowstream(st["keys"], st["values_tile"], res_lo, res_hi, rnd_t, sel2, col_parts=cp, n_vals=n_vals)
+    want = scan_agg_rowstream_plain(st["keys"], st["values_tile"][:n_vals], res_lo, res_hi, rnd_t, sel2, col_parts=cp)
+    assert torch.equal(out[:, 1], want[:, 1])
+    torch.testing.assert_close(out[:, 0], want[:, 0], rtol=1e-5, atol=1e-3)
+    # windows inside the table: ranks within [start, stop) of the sorted run
+    got = slab_locate(st["keys"], slab_lo, slab_hi, rnd_t)
+    assert torch.equal(got, slab_locate_plain(st["keys"], slab_lo, slab_hi, rnd_t))
+
+
+@pytest.mark.cuda
+def test_qgrid_matches_plain(cuda_device):
+    table, _ = _table("narrow", 40_000, 24, cuda_device)
+    st = table._device
+    qs = [q for q in _queries(SCHEMAS["narrow"][0], 200, 25) if q.agg == "count"]
+    res_lo, res_hi, _, _, _, slabs, _ = _slab_operands(table, qs, cuda_device)
+    row = st["values_tile"][0]
+    launches = K.KERNELS["scan_agg_qgrid"].launches
+    got = scan_agg_qgrid(st["keys"], row, res_lo, res_hi, slabs)
+    assert K.KERNELS["scan_agg_qgrid"].launches == launches + 1
+    want = scan_agg_qgrid_plain(st["keys"], row, res_lo, res_hi, slabs)
+    assert torch.equal(got[:, 1], want[:, 1])
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-5, atol=1e-3)
+    assert torch.equal(got, scan_agg_qgrid(st["keys"], row, res_lo, res_hi, slabs))
+
+
+@pytest.mark.cuda
+def test_row_slab_path_on_the_card_matches_the_cpu(cuda_device):
+    """slab_many and table_scan_device_many on a resident table: the card
+    and a CPU twin give equal slabs and counts and close sums; after an
+    append slab_many launches nothing and the scans raise."""
+    bits, layout = SCHEMAS["wide"]
+    tables = {d: _table("wide", 30_000, 26, d)[0] for d in ("cuda", "cpu")}
+    qs = [q for q in _queries(bits, 120, 27) if q.agg != "select"]
+    assert np.array_equal(tables["cuda"].slab_many(qs), tables["cpu"].slab_many(qs))
+    got = ops.table_scan_device_many(tables["cuda"], qs)
+    want = ops.table_scan_device_many(tables["cpu"], qs)
+    for (a, c), (b, d) in zip(got, want):
+        assert c == d
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-3)
+    counts = [q for q in qs if q.agg == "count"]
+    got = ops.table_scan_device_many(tables["cuda"], counts[:5], slabs=tables["cpu"].slab_many(counts[:5]))
+    assert [c for _, c in got] == [c for _, c in ops.table_scan_device_many(tables["cpu"], counts[:5])]
+    rng = np.random.default_rng(28)
+    wk = {c: rng.integers(0, 1 << b, 500, dtype=np.int64) for c, b in bits.items()}
+    wv = {"v": rng.uniform(0, 1, 500), "u": rng.uniform(0, 1, 500)}
+    t = tables["cuda"].merge_run(sort_run(wk, wv, layout, tables["cuda"].schema))
+    before = {name: fn.launches for name, fn in K.KERNELS.items()}
+    host = T.SortedTable(t.layout, t.schema, t.key_cols, t.value_cols, t.packed)
+    assert np.array_equal(t.slab_many(qs), host.slab_many(qs))
+    assert {name: fn.launches for name, fn in K.KERNELS.items()} == before
+    with pytest.raises(ValueError, match="single sorted run"):
+        ops.table_scan_device_many(t, qs)
