@@ -47,6 +47,9 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 formed (the launches read_many makes), each vs its plain
                 version: counts and indices equal, sums within rtol 1e-5 /
                 atol 1e-3; per-group times and bounds, summed per batch
+                (the fused scan's bound counts the (query, tile) pairs its
+                skip rule leaves live, live_tile_pairs; their share per
+                group goes into the read_layer line)
   9. views      CREATE "orders_v" on the same rows with views=True (same
                 layouts, every view verified), the same 4 batches, the
                 wide batch and scalar reads (most sums and counts served
@@ -59,11 +62,15 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 compaction and after the last write
   10. view_kernels  block_sums on a full SF 5 tile (whole and a flush's
                 tail) and boundary_block_sums on the pairs one fresh batch
-                forms, each vs its plain version; times, bounds, the
+                forms, each vs its plain version; block_sums also bit for
+                bit vs the contract's in-block order written out in
+                PyTorch (block_partials_card_order); times, bounds, the
                 library yardstick; then the bit identity of view and fused
-                scan on a table whose schema shrinks the staging tile
+                scan, and of block_sums and the card order, on a table
+                whose schema shrinks the staging tile
   11. breakdown  one fresh batch on each column family: the engine's spans
-                on the host clock, and a second under torch.profiler
+                on the host clock, and a second under torch.profiler (the
+                fused scan's scan_partials and scan_fold apart)
 Every kernel wrapper's launch count is set to 0 just before phase 3 and
 read after phase 7, just before phase 5 and after it, just before phase 6
 and after it, and just before phase 9 and after it; phases 5 and 6 count
@@ -444,7 +451,9 @@ def group_phase(eng, cf_name, batch, dev) -> tuple[dict, dict]:
     batch's groups; the per-group numbers ride along. Also returns the
     read layer's numbers for the batch: its wall, the kernels' share and
     the operand bytes uploaded."""
+    from repro_torch.bench.fused_scan import device_ms
     from repro_torch.kernels import ops
+    from repro_torch.kernels.block_agg import scan_tile
     from repro_torch.kernels.slab_locate import (
         scan_agg_locate, scan_agg_locate_plain, select_compact, select_compact_plain,
     )
@@ -460,8 +469,9 @@ def group_phase(eng, cf_name, batch, dev) -> tuple[dict, dict]:
     for q, (_, rep) in zip(batch, out):
         groups.setdefault(rep.replica_id, []).append(q)
 
-    scan_rows, sel_rows = [], []
+    scan_rows, sel_rows, live_rows = [], [], {}
     upload_bytes = 0
+    cross_ops = cross_bytes = 0.0
     for rid, qs in groups.items():
         table = eng._table(cf, handles[rid])
         st = table._device
@@ -483,11 +493,18 @@ def group_phase(eng, cf_name, batch, dev) -> tuple[dict, dict]:
         check(bool(torch.allclose(ks[0], kp[0], rtol=RTOL, atol=ATOL)), f"{what}: sums differ from plain")
         check(all(torch.equal(a, b) for a, b in zip(ks, scan())), f"{what}: not deterministic")
         q = len(qs)
+        work, live = fused_scan_work(st, d, scan_tile(k_ex, n_vals))
+        live_rows[str(rid)] = live
+        # every (row, query) pair of the windows, as the scan evaluated
+        # them before it skipped pairs
         pairs = int((d["limits"][:, 1] - d["limits"][:, 0]).sum())
-        work = (4 * n * (k_ex + n_vals) + q * (16 * k_ex + 12) + 12 * q, pairs * (3 + 4 * k_ex))
+        cross_bytes += 4 * n * (k_ex + n_vals) + q * (16 * k_ex + 12) + 12 * q
+        cross_ops += pairs * (3 + 4 * k_ex)
         one = tuple(a[:1] for a in args)
         scan_rows.append(dict(
             replica=rid, queries=q, max_abs_err=max_abs_diff(ks[0], kp[0]), ms=time_ms(scan, 10),
+            device_ms=device_ms(scan, 10, ("scan_partials", "scan_fold")),
+            fold_device_ms=device_ms(scan, 10, ("scan_fold",)),
             plain_ms=time_ms(scan_plain, 2), bound_ms=bound(*work)[0], work=work,
             q1_ms=time_ms(lambda: scan(one), 10),
         ))
@@ -523,12 +540,16 @@ def group_phase(eng, cf_name, batch, dev) -> tuple[dict, dict]:
         """The batch's launches together: times summed, and the bound of
         their bytes and operations summed."""
         b, by = bound(sum(r["work"][0] for r in rows), sum(r["work"][1] for r in rows))
-        return dict(
+        out = dict(
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=sum(r["ms"] for r in rows),
             plain_ms=sum(r["plain_ms"] for r in rows), bound_ms=b, bound_by=by, library_ms=None,
             per=f"read_many batch of {len(batch)} ({len(rows)} launches)",
             groups=[{k: v for k, v in r.items() if k != "work"} for r in rows],
         )
+        for key in ("device_ms", "fold_device_ms"):
+            if all(key in r for r in rows):
+                out[key] = sum(r[key] for r in rows)
+        return out
 
     report = {"scan_agg_locate": summed(scan_rows), "select_compact": summed(sel_rows)}
     kernel_ms = report["scan_agg_locate"]["ms"] + report["select_compact"]["ms"]
@@ -536,9 +557,42 @@ def group_phase(eng, cf_name, batch, dev) -> tuple[dict, dict]:
         "read_many_wall_ms": wall_ms, "read_kernels_ms": kernel_ms,
         "read_host_ms": wall_ms - kernel_ms, "operand_upload_bytes": upload_bytes,
         "groups": {str(rid): len(qs) for rid, qs in groups.items()},
+        "scan_live_tile_pairs": live_rows,
+        "scan_cross_product_bound_ms": bound(cross_bytes, cross_ops)[0],
     }
     torch.cuda.synchronize()
     return report, layer
+
+
+def fused_scan_work(st, d, tile) -> tuple[tuple[float, float], dict]:
+    """Bytes and operations the fused scan needs on a group's operands,
+    counted from the (query, tile) pairs its skip rule leaves live
+    (``live_tile_pairs``): the key lanes of the table's rows once, the
+    value row of each (tile, value row) some live pair takes once, the
+    operands and the outputs once; the predicate for every row of a live
+    pair inside its query's window. Also the live share."""
+    from repro_torch.kernels.slab_locate import live_tile_pairs
+
+    n, k_ex = st["n_rows"], sum(st["col_parts"])
+    live = live_tile_pairs(
+        st["keys"], d["res_lo"], d["res_hi"], d["slab_lo"], d["slab_hi"], d["limits"],
+        col_parts=st["col_parts"], n_rows=n, tile=tile,
+    )
+    q, n_tiles = live.shape[0], -(-n // tile)
+    start = torch.arange(live.shape[1], device=live.device, dtype=torch.int64) * tile
+    lim = d["limits"].long()
+    inside = (torch.minimum(start + tile, lim[:, 1:2].clamp(max=n)) - torch.maximum(start, lim[:, 0:1])).clamp(min=0)
+    pair_rows = int((inside * live).sum())
+    tile_rows = (torch.minimum(start + tile, torch.full_like(start, n)) - start).clamp(min=0)
+    value_bytes = sum(
+        4 * int(tile_rows[live[d["sel"] == v].any(dim=0)].sum()) for v in torch.unique(d["sel"]).tolist()
+    )
+    work = (4 * n * k_ex + value_bytes + q * (16 * k_ex + 12) + 12 * q, pair_rows * (3 + 4 * k_ex))
+    share = dict(
+        queries=q, tiles=n_tiles, tile=tile, live_pairs=int(live.sum()),
+        live_share=int(live.sum()) / (q * n_tiles), live_rows=pair_rows,
+    )
+    return work, share
 
 
 def row_slab_batch(batch):
@@ -845,11 +899,13 @@ def view_kernel_phase(eng, fresh_batch, dev) -> dict:
     batch). Then the bit identity of view and fused scan on a table whose
     schema shrinks the fused scan's staging tile."""
     import repro_torch.core as T
+    from repro_torch.bench.fused_scan import device_ms
     from repro_torch.core.storage.memtable import sort_run
     from repro_torch.core.storage.views import plan_view_batch, verify_views
     from repro_torch.kernels import ops
     from repro_torch.kernels.block_agg import (
-        block_sums, block_sums_plain, boundary_block_sums, boundary_block_sums_plain, scan_tile,
+        block_partials_card_order, block_sums, block_sums_plain, boundary_block_sums,
+        boundary_block_sums_plain, scan_tile, scan_tile_plain,
     )
 
     cf = eng.column_families["orders_v"]
@@ -877,14 +933,26 @@ def view_kernel_phase(eng, fresh_batch, dev) -> dict:
     def tail():
         return block_sums(tile, first_block=first, **args)
 
+    # the contract's in-block order, written out in PyTorch: bit for bit
+    rows = scan_tile(k_ex, nv)
+    check(rows == scan_tile_plain(k_ex, nv), f"scan_tile {rows} != the frozen formula's {scan_tile_plain(k_ex, nv)}")
+    tail_got = tail()
+    for v in range(nv):
+        order = block_partials_card_order(tile[v], n, rows)
+        check(torch.equal(got[v], order), f"block_sums: value row {v} differs from the card order")
+        check(torch.equal(tail_got[v], order[first:]), f"block_sums tail: value row {v} differs from the card order")
+
     b_full = bound(4 * nv * n + 4 * nv * nb, nv * n)
     b_tail = bound(4 * nv * (n - first * 8192) + 4 * nv * (nb - first), nv * (n - first * 8192))
     report["block_sums"] = dict(
-        max_abs_err=max_abs_diff(got, want), ms=time_ms(full, 20), plain_ms=time_ms(full_plain, 3),
-        bound_ms=b_full[0], bound_by=b_full[1], library_ms=time_ms(full_library, 20),
-        per=f"full build, {n} rows x {nv} value rows ({nb} blocks)",
-        tail=dict(blocks=nb - first, ms=time_ms(tail, 50), bound_ms=b_tail[0], bound_by=b_tail[1]),
-        scan_tile=scan_tile(k_ex, nv),
+        max_abs_err=max_abs_diff(got, want), ms=time_ms(full, 20), device_ms=device_ms(full, 20, ("block_sums",)),
+        plain_ms=time_ms(full_plain, 3), bound_ms=b_full[0], bound_by=b_full[1],
+        library_ms=time_ms(full_library, 20), per=f"full build, {n} rows x {nv} value rows ({nb} blocks)",
+        tail=dict(
+            blocks=nb - first, ms=time_ms(tail, 50), device_ms=device_ms(tail, 50, ("block_sums",)),
+            bound_ms=b_tail[0], bound_by=b_tail[1],
+        ),
+        scan_tile=rows, card_order_blocks=nv * nb,
     )
 
     # boundary pairs of one fresh batch, per replica group
@@ -924,12 +992,14 @@ def view_kernel_phase(eng, fresh_batch, dev) -> dict:
         work = (4 * int(read) + p * (8 + 8 * w) + 4 * p, int(read) * (1 + 2 * w))
         rows.append(dict(
             replica=rid, pairs=p, windows=w, rows_read=int(read), max_abs_err=max_abs_diff(kb, kp),
-            ms=time_ms(bnd, 20), plain_ms=time_ms(bnd_plain, 3), bound_ms=bound(*work)[0], work=work,
+            ms=time_ms(bnd, 20), device_ms=device_ms(bnd, 20, ("boundary_sums",)), plain_ms=time_ms(bnd_plain, 3),
+            bound_ms=bound(*work)[0], work=work,
         ))
     check(len(rows) > 0, "boundary_block_sums: the fresh batch formed no boundary pairs")
     b, by = bound(sum(r["work"][0] for r in rows), sum(r["work"][1] for r in rows))
     report["boundary_block_sums"] = dict(
         max_abs_err=max(r["max_abs_err"] for r in rows), ms=sum(r["ms"] for r in rows),
+        device_ms=sum(r["device_ms"] for r in rows),
         plain_ms=sum(r["plain_ms"] for r in rows), bound_ms=b, bound_by=by, library_ms=None,
         per=f"read_many batch of {len(fresh_batch)} ({len(rows)} launches)",
         groups=[{k: v for k, v in r.items() if k != "work"} for r in rows],
@@ -951,6 +1021,12 @@ def view_kernel_phase(eng, fresh_batch, dev) -> dict:
     s3 = small._device
     small_tile = scan_tile(sum(s3["col_parts"]), s3["n_value_rows"])
     check(small_tile < 2048, f"the wide schema's staging tile is {small_tile}, not below 2048")
+    small_sums = block_sums(
+        s3["values_tile"], n_rows=n_small, block_n=8192, n_vals=s3["n_value_rows"], n_key_lanes=sum(s3["col_parts"]),
+    )
+    for v in range(s3["n_value_rows"]):
+        order = block_partials_card_order(s3["values_tile"][v], n_small, small_tile)
+        check(torch.equal(small_sums[v], order), f"small-tile block_sums: value row {v} differs from the card order")
     qs = []
     for i in range(256):
         depth = int(rng.integers(0, 4))
@@ -972,7 +1048,7 @@ def view_kernel_phase(eng, fresh_batch, dev) -> dict:
         small = small.merge_run(sort_run(*cols(40_000), layout, small.schema))
     report["small_tile"] = dict(
         rows=n_small, key_lanes=sum(s3["col_parts"]), value_rows=s3["n_value_rows"], scan_tile=small_tile,
-        answers_compared=compared,
+        answers_compared=compared, card_order_blocks=int(small_sums.numel()),
     )
     torch.cuda.synchronize()
     return report
@@ -1026,8 +1102,9 @@ def breakdown_phase(targets, n_rows: int, seed: int) -> dict:
 
 def profile_batch(eng, cf_name, batch) -> dict:
     """One ``read_many`` batch under ``torch.profiler``: its host wall, the
-    union of the device's kernel and copy intervals (busy time), and the
-    device time of each kernel by name. The profiler's own host cost
+    union of the device's kernel and copy intervals (busy time), the
+    device time of each kernel by name, and the fused scan's two kernels
+    (``scan_partials``, ``scan_fold``) apart. The profiler's own host cost
     inflates the wall, so the idle share it gives is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1049,9 +1126,11 @@ def profile_batch(eng, cf_name, batch) -> dict:
         if end > last:
             busy_us += end - max(start, last)
             last = end
+    fused = {k: sum(ms for name, ms in by_name.items() if k in name) for k in ("scan_partials", "scan_fold")}
     return {
         "queries": len(batch), "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": (1.0 - busy_us / 1e3 / wall_ms) if spans else None,
+        "fused_scan_ms": fused,
         "device_ms_by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]),
     }
 

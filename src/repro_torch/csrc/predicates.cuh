@@ -1,7 +1,8 @@
 // Shared device helpers for the read-path kernels (scan_locate.cu,
-// select_compact.cu, block_sums.cu): the resident key layout, the residual
-// and slab predicates, the warp reduction, and the in-block float order of
-// the sum contract with the staging tile that order depends on.
+// select_compact.cu, block_sums.cu, scan_agg.cu, slab_rank.cu): the
+// resident key layout, the residual and slab predicates, the warp
+// reduction, and the in-block float order of the sum contract with the
+// staging tile that order depends on.
 //
 // Layout (kernels/ops.py): key lanes are int32 rows of a [K_pad, N_pad]
 // row-major tensor, lane l of row r at keys[l * n_pad + r]. A logical key
@@ -101,40 +102,73 @@ inline int pick_tile(size_t fixed, int words_per_row) {
 //   1. the block is walked in staging tiles of scan_tile() rows, ascending,
 //      skipping the tiles that miss the query's row window; on the read
 //      path that window is [0, n_rows), the table's live rows;
-//   2. per tile, thread t sums the tile rows t, t + kThreads, ... in
-//      ascending order, starting from 0;
+//   2. per tile, thread t sums the tile rows t, t + kThreads, ... (its
+//      owned_row()s) in ascending order, starting from +0.0, adding the
+//      value of each row it takes (thread_tile_sum);
 //   3. a fixed warp butterfly reduces each warp, and lane 0 adds the warp's
-//      tile sum into that warp's slot (slots start at 0);
-//   4. the kWarps slots fold in warp order into the block partial.
+//      tile sum into that warp's slot; slots start at +0.0 (warp_slot_add);
+//   4. the kWarps slots fold in warp order into the block partial
+//      (fold_warp_slots).
 // The fused scan (scan_locate.cu) and the view kernels (block_sums.cu) all
 // take this order from the helpers below, so a view-served sum equals the
 // fused scan's bit for bit on every schema: the tile, and with it the
 // order, depends on the table's key lanes and live value rows.
+//
+// A kernel may leave out work that adds nothing. A thread sum starts at
+// +0.0 and a warp slot at +0.0, and in round-to-nearest x + y is -0.0 only
+// when both are -0.0, so no thread sum, butterfly result or slot is ever
+// -0.0; adding +0.0 to any of them changes no bit. A warp in which no lane
+// took a row of the tile holds +0.0 in every lane, so it may skip its
+// butterfly, and a (tile, query) pair in which no row is taken may be
+// skipped whole: the stored partials are the same.
 
-// Dynamic shared memory of the fused scan besides its staging tile: the
-// bounds, windows, selectors and per-warp partials of kQueryChunk queries.
-inline size_t scan_fixed_smem(int n_lanes) {
-  return (size_t)kQueryChunk * (4 * n_lanes + 3 + 3 * kWarps) * 4;
-}
-
-// Rows of the fused scan's staging tile for a table of `n_lanes` key lanes
-// and `n_vals` live value rows (0 if even the smallest tile does not fit).
+// Rows of the staging tile that fixes the order, for a table of `n_lanes`
+// key lanes and `n_vals` live value rows: the largest power of two in
+// [kThreads, kMaxTileRows] whose tile fits a 200 KB budget beside 128
+// queries' bounds, windows, selectors and per-warp partials, as the first
+// fused scan laid out its shared memory (0 if even 256 rows do not fit).
+// The formula is frozen, written out here on its own: every stored view
+// partial was reduced in the order it gives, so no kernel's shared-memory
+// layout may move it.
+constexpr int kMaxTileRows = 2048;
 inline int scan_tile(int n_lanes, int n_vals) {
-  return pick_tile(scan_fixed_smem(n_lanes), n_lanes + n_vals);
+  const size_t fixed = (size_t)128 * (4 * n_lanes + 27) * 4;
+  for (int tile = kMaxTileRows; tile >= 256; tile >>= 1) {
+    if (fixed + (size_t)tile * (n_lanes + n_vals) * 4 <= (size_t)200 * 1024) return tile;
+  }
+  return 0;
 }
 
-// Steps 2 and 3 for one tile: `take(i, v)` says whether tile row i counts
-// and, if so, sets its value v. Every thread of the CTA must call it.
-template <typename Take>
-__device__ __forceinline__ void tile_sum_into(int tile, Take take,
-                                              float* warp_slots) {
+// Rows a thread owns in the largest tile.
+constexpr int kMaxRowsPerThread = kMaxTileRows / kThreads;
+
+// Step 2's row ownership: the k-th row thread threadIdx.x owns, counted
+// from the start of a tile (or of a block: a block's tiles are contiguous,
+// so thread t's rows of a block are t + kThreads * k, tile by tile).
+__device__ __forceinline__ int owned_row(int k) { return threadIdx.x + k * kThreads; }
+
+// Step 2 for one tile: the thread's sum over its rows first .. first + N - 1
+// of `v`, ascending from +0.0, adding v[k] where bit k of `take` is set.
+// A row not taken adds +0.0, which changes no bit (see above); the adds
+// carry no branch, so a caller's loads of v are all issued before the
+// first add and none is sunk behind a take test.
+template <int N, int M>
+__device__ __forceinline__ float thread_tile_sum(const float (&v)[M], uint32_t take, int first) {
   float s = 0.f;
-  for (int i = threadIdx.x; i < tile; i += kThreads) {
-    float v;
-    if (take(i, v)) s += v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) s += ((take >> (first + k)) & 1u) ? v[first + k] : 0.f;
+  return s;
+}
+
+// Step 3 for one tile: the warp's butterfly of the thread sums `s`, added
+// by lane 0 into `slot` (the warp's slot). `took` says whether this lane
+// took a row of the tile; a warp in which none did skips the butterfly.
+// Every lane of the warp must call it.
+__device__ __forceinline__ void warp_slot_add(float s, bool took, float& slot) {
+  if (__any_sync(0xffffffffu, took)) {
+    s = warp_sum(s);
+    if ((threadIdx.x & 31) == 0) slot += s;
   }
-  s = warp_sum(s);
-  if ((threadIdx.x & 31) == 0) warp_slots[threadIdx.x >> 5] += s;
 }
 
 // Step 4: the block partial from the kWarps slots, folded in warp order.

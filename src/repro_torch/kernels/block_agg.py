@@ -19,7 +19,8 @@ reduced the same way:
   (tiles of ``scan_tile(n_key_lanes, n_vals)`` rows, threads, warp
   butterfly, warp slots), and the fused scan and both view kernels call
   it; the wrappers therefore take the table's key lanes and live value
-  rows, which set the tile;
+  rows, which set the tile. :func:`block_partials_card_order` writes that
+  order out in PyTorch, so a test on the card can hold a kernel to it;
 * on the CPU, :func:`block_partials` is the one in-block reduction of the
   plain fused scan and of both plain view versions.
 
@@ -43,11 +44,13 @@ from . import _build
 __all__ = [
     "BLOCK_ROWS",
     "block_partials",
+    "block_partials_card_order",
     "block_sums",
     "block_sums_plain",
     "boundary_block_sums",
     "boundary_block_sums_plain",
     "scan_tile",
+    "scan_tile_plain",
 ]
 
 #: Rows per block of the sum contract (``ops.DEVICE_BLOCK_N``).
@@ -100,6 +103,51 @@ def scan_tile(n_key_lanes: int, n_vals: int) -> int:
     built library computes it."""
     lib = _build.load("block_sums", _SIG)
     return int(lib.scan_tile_rows(int(n_key_lanes), int(n_vals)))
+
+
+def scan_tile_plain(n_key_lanes: int, n_vals: int) -> int:
+    """Plain version of :func:`scan_tile`, the frozen formula of
+    ``csrc/predicates.cuh`` written out: the largest power of two in
+    [256, 2048] with ``128 * (4 * n_key_lanes + 27) * 4 + tile *
+    (n_key_lanes + n_vals) * 4 <= 200 KiB``, else 0."""
+    fixed = 128 * (4 * n_key_lanes + 27) * 4
+    tile = 2048
+    while tile >= 256:
+        if fixed + tile * (n_key_lanes + n_vals) * 4 <= 200 * 1024:
+            return tile
+        tile //= 2
+    return 0
+
+
+def block_partials_card_order(values_row: torch.Tensor, n_rows: int, tile: int) -> torch.Tensor:
+    """float32 ``[ceil(N / 8192)]``: the partial of ``values_row`` ``[N]``
+    over each 8192-row block, rows ``< n_rows`` only, reduced as the card's
+    kernels reduce it (``csrc/predicates.cuh``, steps 1-4) and written out
+    in float32 PyTorch: per tile of ``tile`` rows, thread ``t`` of 256 adds
+    rows ``t, t + 256, ...`` in ascending order from +0.0; a xor butterfly
+    over each warp's 32 lanes; lane 0's result added into the warp's slot;
+    the 8 slots folded in warp order. A row outside ``[0, n_rows)`` adds
+    +0.0, which leaves every bit as skipping it does. Held bit for bit
+    against ``block_sums`` on the card."""
+    n = values_row.shape[0]
+    nb = -(-n // BLOCK_ROWS)
+    x = values_row[: min(int(n_rows), n)].to(torch.float32)
+    x = torch.nn.functional.pad(x, (0, nb * BLOCK_ROWS - x.shape[0]))
+    rpt = tile // 256
+    x = x.view(nb, BLOCK_ROWS // tile, rpt, 8, 32)  # block, tile, k, warp, lane
+    s = torch.zeros_like(x[:, :, 0])
+    for k in range(rpt):
+        s = s + x[:, :, k]
+    lane = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[..., lane ^ o]
+    slot = torch.zeros_like(s[:, 0, :, 0])
+    for t in range(BLOCK_ROWS // tile):
+        slot = slot + s[:, t, :, 0]
+    out = torch.zeros_like(slot[:, 0])
+    for w in range(8):
+        out = out + slot[:, w]
+    return out
 
 
 def block_sums_plain(values, *, n_rows: int, first_block: int = 0, n_vals: int) -> torch.Tensor:

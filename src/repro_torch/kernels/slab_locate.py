@@ -7,6 +7,9 @@ passing the residual predicate, the int32 matched count, and the int32
 count of rows whose key tuple lies inside the query's slab (the rows a
 sorted scan would stream, ``rows_scanned``). CUDA tensors run
 ``csrc/scan_locate.cu``; CPU tensors run :func:`scan_agg_locate_plain`.
+The kernel evaluates only the (query, tile) pairs its skip rule leaves
+live; :func:`live_tile_pairs` is that rule in plain PyTorch, for
+measurement and tests.
 
 ``select_compact`` — per query, the ascending row indices that pass the
 residual predicate inside its window, as one flat int32 array sized by the
@@ -43,7 +46,9 @@ from .block_agg import BLOCK_ROWS, block_partials
 
 __all__ = [
     "BLOCK_ROWS",
+    "SCAN_QUERY_CHUNK",
     "fold_blocks",
+    "live_tile_pairs",
     "scan_agg_locate",
     "scan_agg_locate_plain",
     "select_compact",
@@ -52,6 +57,10 @@ __all__ = [
     "slab_locate_plain",
 ]
 
+
+#: Queries one CTA of the fused scan holds (``kQueryChunk`` in
+#: ``csrc/predicates.cuh``): the skip rule's window hull is per chunk.
+SCAN_QUERY_CHUNK = 128
 
 _P, _I, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
 _SCAN_SIG = {
@@ -174,6 +183,89 @@ def scan_agg_locate_plain(
     return fold_blocks(parts), matched, slab_rows
 
 
+_I64_MAX, _I64_MIN = torch.iinfo(torch.int64).max, torch.iinfo(torch.int64).min
+
+
+def _col_values(lanes, col_parts):
+    """Each logical column as one int64 whose order is the column's: a
+    wide column's (hi, lo) lane pair maps to ``hi * 2**32 + lo + 2**31``
+    (``col_value`` in ``csrc/scan_locate.cu``). ``lanes`` is ``[K_ex, ...]``
+    int64; returns one tensor per column."""
+    out, lane = [], 0
+    for parts in col_parts:
+        v = lanes[lane]
+        if parts == 2:
+            v = v * (1 << 32) + lanes[lane + 1] + (1 << 31)
+        out.append(v)
+        lane += parts
+    return out
+
+
+def live_tile_pairs(
+    keys, res_lo, res_hi, slab_lo, slab_hi, limits, *, col_parts, n_rows: int, tile: int
+) -> torch.Tensor:
+    """bool ``[Q, ceil(N / tile)]``: the (query, tile) pairs the fused
+    scan's kernel evaluates, by its skip rule. Per chunk of
+    ``SCAN_QUERY_CHUNK`` queries the kernel takes, of each tile of
+    ``tile`` rows, the rows inside the hull of the chunk's nonempty
+    windows (here also below ``n_rows``; the kernel stops at the tensor's
+    end) and reduces them to the lexicographic minimum and maximum key
+    tuple and each logical column's minimum and maximum. Query ``q`` is
+    live on the tile if its window meets the tile, the tile holds such a
+    row, and either the tuple range meets ``[slab_lo, slab_hi]`` or every
+    column's range meets ``[res_lo, res_hi)``. A row a query counts (in
+    its slab or matched) lies in a live pair, so skipping the rest changes
+    no count and no bit of a sum. Plain PyTorch on any device; it serves
+    measurement and tests, not the read path."""
+    col_parts = _col_parts(col_parts, res_lo.shape[1])
+    n_lanes = sum(col_parts)
+    n = keys.shape[1]
+    q = res_lo.shape[0]
+    n_tiles = -(-n // tile)
+    dev = keys.device
+    k = torch.nn.functional.pad(keys[:n_lanes].long(), (0, n_tiles * tile - n))
+    k = k.view(n_lanes, n_tiles, tile)
+    rows = torch.arange(n_tiles * tile, device=dev).view(n_tiles, tile)
+    starts = rows[:, 0]
+    cols = _col_values(k, col_parts)
+    live = torch.zeros((q, n_tiles), dtype=torch.bool, device=dev)
+    lim = limits.long()
+    for s in range(0, q, SCAN_QUERY_CHUNK):
+        e = min(q, s + SCAN_QUERY_CHUNK)
+        lo, hi = lim[s:e, 0], lim[s:e, 1]
+        full = lo < hi
+        if not bool(full.any()):
+            continue
+        h_lo, h_hi = int(lo[full].min()), min(int(hi[full].max()), n_rows, n)
+        taken = (rows >= h_lo) & (rows < h_hi)
+        tmin, tmax = [], []
+        at_min, at_max = taken, taken
+        for lane in range(n_lanes):
+            x = k[lane]
+            mn = torch.where(at_min, x, _I64_MAX).amin(dim=1)
+            mx = torch.where(at_max, x, _I64_MIN).amax(dim=1)
+            at_min = at_min & (x == mn[:, None])
+            at_max = at_max & (x == mx[:, None])
+            tmin.append(mn)
+            tmax.append(mx)
+        le = ge = None  # tuple min <= slab_hi, tuple max >= slab_lo
+        for lane in reversed(range(n_lanes)):
+            a, b = tmin[lane][None, :], slab_hi[s:e, lane : lane + 1].long()
+            le = (a <= b) if le is None else (a < b) | ((a == b) & le)
+            a, b = tmax[lane][None, :], slab_lo[s:e, lane : lane + 1].long()
+            ge = (a >= b) if ge is None else (a > b) | ((a == b) & ge)
+        res = torch.ones_like(le)
+        r_lo = _col_values(res_lo[s:e].long().T, col_parts)
+        r_hi = _col_values(res_hi[s:e].long().T, col_parts)
+        for v, b_lo, b_hi in zip(cols, r_lo, r_hi):
+            c_min = torch.where(taken, v, _I64_MAX).amin(dim=1)[None, :]
+            c_max = torch.where(taken, v, _I64_MIN).amax(dim=1)[None, :]
+            res &= (c_min < b_hi[:, None]) & (c_max >= b_lo[:, None])
+        window = full[:, None] & (lo[:, None] < starts[None, :] + tile) & (hi[:, None] > starts[None, :])
+        live[s:e] = window & taken.any(dim=1)[None, :] & ((le & ge) | res)
+    return live
+
+
 def scan_agg_locate(
     keys: torch.Tensor,  # int32[K_pad, N] key lanes
     values: torch.Tensor,  # float32[V_pad, N] value tile
@@ -225,9 +317,9 @@ def scan_agg_locate(
     out_c = torch.empty(q, dtype=torch.int32, device=device)
     if q == 0 or n_blocks == 0:
         return out_s.zero_(), out_m.zero_(), out_c.zero_()
-    part_s = torch.empty((n_blocks, q), dtype=torch.float32, device=device)
-    part_m = torch.empty((n_blocks, q), dtype=torch.int32, device=device)
-    part_c = torch.empty((n_blocks, q), dtype=torch.int32, device=device)
+    part_s = torch.empty((q, n_blocks), dtype=torch.float32, device=device)
+    part_m = torch.empty((q, n_blocks), dtype=torch.int32, device=device)
+    part_c = torch.empty((q, n_blocks), dtype=torch.int32, device=device)
     lib = _build.load("scan_locate", _SCAN_SIG)
     code = lib.scan_locate_launch(
         keys.data_ptr(), n_pad, k_ex, len(col_parts), _wide_mask(col_parts),

@@ -10,7 +10,8 @@ Counts, indices, permutations and histograms must equal the plain
 versions' on the same CUDA tensors; float32 sums agree within rtol 1e-5 /
 atol 1e-3 (the kernels reduce a block in another order than the plain
 versions). On the card, view-served sums equal the fused scan's bit for
-bit, on schemas whose staging tile differs.
+bit, on schemas whose staging tile differs, and ``block_sums`` equals the
+contract's in-block order written out in PyTorch bit for bit.
 """
 
 import numpy as np
@@ -24,11 +25,13 @@ from repro_torch.core.tpch import generate_orders, orders_schema
 from repro_torch.core.storage.views import query_view_eligible, verify_views
 from repro_torch.kernels import ops
 from repro_torch.kernels.block_agg import (
+    block_partials_card_order,
     block_sums,
     block_sums_plain,
     boundary_block_sums,
     boundary_block_sums_plain,
     scan_tile,
+    scan_tile_plain,
 )
 from repro_torch.kernels.ecdf_hist import ecdf_hist, ecdf_hist_plain
 from repro_torch.kernels.merge_runs import merge_run_positions, merge_run_positions_plain
@@ -414,3 +417,171 @@ def test_row_slab_path_on_the_card_matches_the_cpu(cuda_device):
     assert {name: fn.launches for name, fn in K.KERNELS.items()} == before
     with pytest.raises(ValueError, match="single sorted run"):
         ops.table_scan_device_many(t, qs)
+
+
+# -- the redesigned fused scan and view block sums ----------------------------------------
+
+
+def _scan_operands(col_bits, n, n_q, seed, device):
+    """Key lanes of random columns (``col_bits`` per logical column; a
+    column over 30 bits is a lane pair) and random operands whose residual
+    box and slab are drawn apart, so the box mostly lies outside the slab;
+    every fifth query empty; windows whole, random or empty; selectors
+    partly outside the value rows."""
+    rng = np.random.default_rng(seed)
+    col_parts = tuple(2 if b > 30 else 1 for b in col_bits)
+
+    def lanes(vals):
+        out = []
+        for v, b in zip(vals, col_bits):
+            out += [v >> 30, v & ((1 << 30) - 1)] if b > 30 else [v]
+        return np.stack(out)
+
+    def draw(m):
+        return [rng.integers(0, 1 << b, m, dtype=np.int64) for b in col_bits]
+
+    cols = draw(n)
+    keys = lanes(cols)
+    pick = rng.integers(0, n, n_q)
+    a, b = draw(n_q), draw(n_q)
+    # a third of the boxes are widened to hold the picked row, which is in
+    # the slab below, so every lane count has matches
+    hold = rng.random(n_q) < 1 / 3
+    a = [np.where(hold, np.minimum(x, y), x) for x, y in zip(a, (col[pick] for col in cols))]
+    b = [np.where(hold, np.maximum(x, y), x) for x, y in zip(b, (col[pick] for col in cols))]
+    res_lo = lanes([np.minimum(x, y) for x, y in zip(a, b)]).T
+    res_hi = lanes([np.maximum(x, y) + 1 for x, y in zip(a, b)]).T
+    slab_lo = keys[:, pick].T.copy()
+    slab_hi = slab_lo.copy()
+    slab_hi[:, -1] += rng.integers(0, 64, n_q)
+    c, d = lanes(draw(n_q)).T, lanes(draw(n_q)).T
+    swap = np.array([tuple(x) > tuple(y) for x, y in zip(c, d)])
+    c[swap], d[swap] = d[swap].copy(), c[swap].copy()
+    far = rng.random(n_q) < 0.3
+    slab_lo[far], slab_hi[far] = c[far], d[far]
+    limits = np.sort(rng.integers(0, n + 1, (n_q, 2)), axis=1)
+    limits[rng.random(n_q) < 0.5] = (0, n)
+    empty = np.arange(n_q) % 5 == 0
+    slab_lo[empty], slab_hi[empty], limits[empty] = 0, -1, 0
+    sel = rng.integers(-1, 4, n_q)
+    arrays = (keys, res_lo, res_hi, slab_lo, slab_hi, limits, sel)
+    t = [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device) for x in arrays]
+    values = torch.from_numpy(rng.uniform(-5, 5, (3, n)).astype(np.float32)).to(device)
+    return t[0], values, tuple(t[1:6]), t[6], col_parts
+
+
+def _fused_matches_plain(keys, values, args, sel, col_parts, n_vals):
+    got = scan_agg_locate(keys, values, *args, sel, col_parts=col_parts, n_vals=n_vals)
+    want = scan_agg_locate_plain(keys, values[:n_vals], *args, sel, col_parts=col_parts)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
+    again = scan_agg_locate(keys, values, *args, sel, col_parts=col_parts, n_vals=n_vals)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # deterministic sums
+    assert int(got[1].sum()) > 0 and int(got[2].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "col_bits, n",
+    [
+        ((9,), 6001),  # one lane; rows not a multiple of 4: 4-byte staging
+        ((7, 9, 5), 3 * 8192 + 801),  # TPC-H's three lanes, a ragged last block
+        ((6, 45, 5), 20_000),  # a wide column: four lanes
+        ((60, 60, 60, 12, 3), 9000),  # eight lanes, three 60-bit pairs
+        ((40, 40, 40, 40, 7), 7000),  # nine lanes: the generic instantiation
+        ((40,) * 30, 3000),  # sixty lanes: generic, one staging buffer
+    ],
+)
+def test_fused_scan_matches_plain_on_independent_bounds(cuda_device, col_bits, n):
+    """The fused kernel against its plain version on operands whose
+    residual box lies outside the slab as often as not, with wide lane
+    pairs, empty queries, random windows and stray selectors, over the
+    compile-time lane counts and the generic one."""
+    keys, values, args, sel, cp = _scan_operands(col_bits, n, 300, 31 + n, cuda_device)
+    launches = K.KERNELS["scan_agg_locate"].launches
+    _fused_matches_plain(keys, values, args, sel, cp, 3)
+    assert K.KERNELS["scan_agg_locate"].launches == launches + 2
+    # only two of the three value rows live: a selector of 2 sums nothing
+    _fused_matches_plain(keys, values, args, sel, cp, 2)
+
+
+@pytest.mark.cuda
+def test_fused_scan_matches_plain_on_a_run_stack(cuda_device):
+    """A resident table with two appended runs (and the older state whose
+    padding the appends filled): the engine's operands and random windows,
+    the kernel against its plain version on the same tensors."""
+    table, kc = _table("wide", 30_000, 33, cuda_device)
+    older = table
+    bits, layout = SCHEMAS["wide"]
+    rng = np.random.default_rng(34)
+    for m in (4000, 2500):
+        wk = {c: rng.integers(0, 1 << b, m, dtype=np.int64) for c, b in bits.items()}
+        wk["a"][: m // 3] = kc["a"][: m // 3]
+        wv = {"v": rng.uniform(-10, 100, m), "u": rng.uniform(0, 7, m)}
+        table = table.merge_run(sort_run(wk, wv, layout, table.schema))
+    assert table._device["n_runs"] == 3
+    qs = [q for q in _queries(bits, 300, 35) if q.agg != "select"]
+    for t in (table, older):
+        st = t._device
+        d = ops.device_query_operands(t, qs)
+        args = (d["res_lo"], d["res_hi"], d["slab_lo"], d["slab_hi"], d["limits"])
+        _fused_matches_plain(st["keys"], st["values_tile"], args, d["sel"], st["col_parts"], st["n_value_rows"])
+        lim = np.sort(rng.integers(0, st["n_rows"] + 1, (len(qs), 2)), axis=1).astype(np.int32)
+        args = args[:4] + (torch.from_numpy(lim).to(cuda_device),)
+        _fused_matches_plain(st["keys"], st["values_tile"], args, d["sel"], st["col_parts"], st["n_value_rows"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["narrow", "wide", "tile1024"])
+def test_block_sums_equal_the_card_order_bit_for_bit(cuda_device, kind):
+    """block_sums against the contract's in-block order written out in
+    PyTorch (block_partials_card_order), bit for bit, on a fresh view and
+    after an append (an older state's padding then holds newer rows), for
+    whole builds and a flush's tail."""
+    table, bits, n_vals = _view_table(kind, 50_000, 36, cuda_device)
+    rng = np.random.default_rng(37)
+    wk = {c: rng.integers(0, 1 << min(b, 6), 9000, dtype=np.int64) for c, b in bits.items()}
+    wv = {f"v{i}": rng.uniform(-10.0, 100.0, 9000) for i in range(n_vals)}
+    newer = table.merge_run(sort_run(wk, wv, table.layout, table.schema))
+    for t in (table, newer):
+        st = t._device
+        k_ex, nv, n = sum(st["col_parts"]), st["n_value_rows"], st["n_rows"]
+        tile = scan_tile(k_ex, nv)
+        got = block_sums(st["values_tile"], n_rows=n, block_n=8192, n_vals=nv, n_key_lanes=k_ex)
+        tail = block_sums(st["values_tile"], n_rows=n, block_n=8192, first_block=3, n_vals=nv, n_key_lanes=k_ex)
+        for v in range(nv):
+            want = block_partials_card_order(st["values_tile"][v], n, tile)
+            assert torch.equal(got[v], want), (kind, v)
+            assert torch.equal(tail[v], want[3:]), (kind, v)
+
+
+@pytest.mark.cuda
+def test_scan_tile_keeps_the_frozen_formula(cuda_device):
+    """The built library's staging tile equals the frozen formula for every
+    lane count and a spread of value-row counts: the in-block order, and
+    every stored view partial with it, has not moved."""
+    for lanes in range(1, 66):
+        for n_vals in (1, 2, 3, 4, 9, 16, 40, 100):
+            assert scan_tile(lanes, n_vals) == scan_tile_plain(lanes, n_vals), (lanes, n_vals)
+
+
+@pytest.mark.cuda
+def test_fused_scan_matches_plain_on_a_tpch_run_stack(cuda_device):
+    """The main path's shape at a small scale: a clerk-led orders table with
+    two appended runs and the Q1/Q2 batch it serves. The tiles straddling
+    two runs are live for nearly every query, so the kernel refines them
+    by segment; counts equal the plain version's, sums within tolerance."""
+    kc, vc = generate_orders(0.2, seed=40)
+    layout = ("clerk", "orderdate", "custkey")
+    table = T.SortedTable.from_columns(kc, vc, layout, orders_schema()).place_on_device(cuda_device)
+    kw, vw = generate_orders(0.02, seed=41)
+    for i in range(2):
+        sl = slice(i * 15_000, (i + 1) * 15_000)
+        table = table.merge_run(sort_run({c: v[sl] for c, v in kw.items()}, {c: v[sl] for c, v in vw.items()}, layout, table.schema))
+    st = table._device
+    assert st["n_runs"] == 3
+    wl = T.tpch.q1_q2_workload(n_instances=400, n_rows=len(kc["custkey"]), seed=42)
+    qs = [q for q in wl.queries if isinstance(q.filters.get("clerk"), T.Eq)][:256]
+    d = ops.device_query_operands(table, qs)
+    args = (d["res_lo"], d["res_hi"], d["slab_lo"], d["slab_hi"], d["limits"])
+    _fused_matches_plain(st["keys"], st["values_tile"], args, d["sel"], st["col_parts"], st["n_value_rows"])
