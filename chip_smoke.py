@@ -21,11 +21,13 @@ Phases, each asserting (a failure exits non-zero and prints no result):
   4. reads      4 read_many batches of 256 (1/2 sums, 1/4 counts, 1/4
                 selects), one repeated batch (result-cache hits), a batch
                 of wide queries and 16 scalar reads; 64 + 8 answers held
-                against a brute-force numpy pass over the generated rows
+                against a brute-force numpy pass over the generated rows;
+                select_compact on the replica groups of the first batch
+                vs its plain version (single runs)
   5. row_slab   the row-slab read path on the three replicas while each
                 holds one sorted run, its launch counts from 0: per replica,
                 a fresh batch of 256 (128 sums, 128 counts) located by
-                slab_many (the binary-search kernel, equal to the host
+                slab_many (the k-ary search kernel, equal to the host
                 searchsorted), scanned by table_scan_device_many on both
                 grids (queries outer on the 128 sums) and with slabs=None,
                 and one Q = 1 table_scan_device; every answer against the
@@ -33,6 +35,12 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 its plain version on the same CUDA tensors (slabs equal,
                 counts equal, sums within rtol 1e-5 / atol 1e-3), timed
                 beside its bound and, for slab_locate, torch.searchsorted
+                on the packed key, the two timed in turns (kernel,
+                library, library, kernel) by CUDA events and under
+                torch.profiler (bench.select_slab.slab_locate_turns); the
+                k-ary search's dependent rounds, one dependent load's
+                latency (bench.select_slab.load_latency_ns) and the
+                latency bound they give go into the row_slab line
   6. batched_read  repro_torch.bench.batched_read.run_device on one
                 replica of the SF 5 rows, batch sizes 16, 64 and 256: the
                 numpy, qgrid, rowgrid, rowgrid-over-device-slabs and fused
@@ -49,7 +57,12 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 atol 1e-3; per-group times and bounds, summed per batch
                 (the fused scan's bound counts the (query, tile) pairs its
                 skip rule leaves live, live_tile_pairs; their share per
-                group goes into the read_layer line)
+                group goes into the read_layer line); the select
+                compaction's three passes timed apart under torch.profiler
+                (bench.select_slab.select_group), its bound counted from
+                the (query, segment) pairs its skip rule leaves live
+                (select_live_pairs); those pairs and the (query, block)
+                pairs holding a match go into the read_layer line
   9. views      CREATE "orders_v" on the same rows with views=True (same
                 layouts, every view verified), the same 4 batches, the
                 wide batch and scalar reads (most sums and counts served
@@ -59,7 +72,9 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 answer against the brute-force oracle and every
                 view-served answer against the fused kernel on the same
                 replica table, bit for bit, before the writes, after the
-                compaction and after the last write
+                compaction and after the last write; select_compact vs its
+                plain version on the replica groups of the first batch and
+                of the batch after the writes (run stacks)
   10. view_kernels  block_sums on a full SF 5 tile (whole and a flush's
                 tail) and boundary_block_sums on the pairs one fresh batch
                 forms, each vs its plain version; block_sums also bit for
@@ -80,7 +95,9 @@ row-slab kernels on phase 5's, the view kernels on phase 9's); the row-slab
 line reports phase 6's launches beside phase 5's.
 The oracle is a brute-force pass over every generated row on the card
 (plain PyTorch masks and float64 sums); checks that launch kernels
-(verify_views, the fused comparisons) leave the launch counts untouched.
+(verify_views, the fused comparisons, the select checks) leave the
+launch counts untouched. The read_layer line's select_checks hold the
+select checks of both column families before and after the writes.
 
 The standard output ends with the kernels line, the per-phase wall times
 and per-layer numbers, the views line, the row-slab line, the batched-read
@@ -96,7 +113,6 @@ import argparse
 import json
 import math
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -104,12 +120,6 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
-
-# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth,
-# and the float32 rate outside the tensor cores, used here as the peak for
-# the kernels' scalar integer compares (int32 compares run no faster).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
 
 RTOL, ATOL = 1e-5, 1e-3
 BATCH = 256
@@ -171,11 +181,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip()
+    from repro_torch.bench.fused_scan import card_line
+
+    return card_line()
 
 
 class Phases:
@@ -197,22 +205,19 @@ class Phases:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean time of ``fn`` between CUDA events over ``reps`` calls after one
+    warm-up (``bench.fused_scan.events_ms``)."""
+    from repro_torch.bench.fused_scan import events_ms
+
+    return events_ms(fn, reps)
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """The least time for the work, and what sets it
+    (``bench.fused_scan.bound_ms``: one H100 SXM's published peaks)."""
+    from repro_torch.bench.fused_scan import bound_ms
+
+    return bound_ms(bytes_moved, ops)
 
 
 # -- workload -----------------------------------------------------------------
@@ -454,9 +459,7 @@ def group_phase(eng, cf_name, batch, dev) -> tuple[dict, dict]:
     from repro_torch.bench.fused_scan import device_ms
     from repro_torch.kernels import ops
     from repro_torch.kernels.block_agg import scan_tile
-    from repro_torch.kernels.slab_locate import (
-        scan_agg_locate, scan_agg_locate_plain, select_compact, select_compact_plain,
-    )
+    from repro_torch.kernels.slab_locate import scan_agg_locate, scan_agg_locate_plain
 
     cf = eng.column_families[cf_name]
     handles = {r.replica_id: r for r in cf.replicas}
@@ -510,30 +513,9 @@ def group_phase(eng, cf_name, batch, dev) -> tuple[dict, dict]:
         ))
 
         # select compaction on the group's selects with matches
-        matched = ks[1].cpu().numpy().astype(np.int64)
-        sel_idx = [i for i, qq in enumerate(qs) if qq.agg == "select" and matched[i] > 0]
-        if not sel_idx:
-            continue
-        idx = torch.tensor(sel_idx, device=dev)
-        s_args = (d["res_lo"][idx], d["res_hi"][idx], d["limits"][idx])
-        counts = matched[sel_idx]
-
-        def sel():
-            return select_compact(st["keys"], *s_args, counts, col_parts=cp)
-
-        def sel_plain():
-            return select_compact_plain(st["keys"], *s_args, counts, col_parts=cp)
-
-        fs, fp = sel(), sel_plain()
-        check(torch.equal(fs, fp), f"select_compact (replica {rid}): indices differ from plain")
-        work = (
-            4 * n * k_ex + len(sel_idx) * (8 * k_ex + 8) + 4 * int(counts.sum()),
-            len(sel_idx) * n * (3 + 2 * k_ex),
-        )
-        sel_rows.append(dict(
-            replica=rid, queries=len(sel_idx), max_abs_err=max_abs_diff(fs, fp), ms=time_ms(sel, 10),
-            plain_ms=time_ms(sel_plain, 2), bound_ms=bound(*work)[0], work=work,
-        ))
+        row = select_group(st, d, [qq.agg for qq in qs], ks[1])
+        if row is not None:
+            sel_rows.append(dict(replica=rid, **row))
     check(len(sel_rows) > 0, "select_compact: no group of the batch had selects with matches")
 
     def summed(rows):
@@ -544,11 +526,13 @@ def group_phase(eng, cf_name, batch, dev) -> tuple[dict, dict]:
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=sum(r["ms"] for r in rows),
             plain_ms=sum(r["plain_ms"] for r in rows), bound_ms=b, bound_by=by, library_ms=None,
             per=f"read_many batch of {len(batch)} ({len(rows)} launches)",
-            groups=[{k: v for k, v in r.items() if k != "work"} for r in rows],
+            groups=[{k: v for k, v in r.items() if k not in ("work", "live")} for r in rows],
         )
         for key in ("device_ms", "fold_device_ms"):
             if all(key in r for r in rows):
                 out[key] = sum(r[key] for r in rows)
+        if all("pass_device_ms" in r for r in rows):
+            out["pass_device_ms"] = {p: sum(r["pass_device_ms"][p] for r in rows) for p in rows[0]["pass_device_ms"]}
         return out
 
     report = {"scan_agg_locate": summed(scan_rows), "select_compact": summed(sel_rows)}
@@ -558,10 +542,65 @@ def group_phase(eng, cf_name, batch, dev) -> tuple[dict, dict]:
         "read_host_ms": wall_ms - kernel_ms, "operand_upload_bytes": upload_bytes,
         "groups": {str(rid): len(qs) for rid, qs in groups.items()},
         "scan_live_tile_pairs": live_rows,
+        "select_groups": [_select_check_row(r["replica"], r) for r in sel_rows],
         "scan_cross_product_bound_ms": bound(cross_bytes, cross_ops)[0],
     }
     torch.cuda.synchronize()
     return report, layer
+
+
+def select_group(st, d, aggs, matched) -> dict | None:
+    """``bench.select_slab.select_group`` on one replica group's selects
+    with matches (the launch ``read_many`` makes after the fused scan, whose
+    ``matched`` counts size it): held equal to its plain version, timed by
+    CUDA events and under ``torch.profiler`` (its three passes apart), with
+    its bound counted from the pairs its skip rule leaves live. The
+    measured numbers and ``bound_ms`` come back as they go into the
+    kernels line; ``work`` and ``live`` (the live pairs, for the read
+    layer's line) ride along. None if the group has no select with a
+    match."""
+    from repro_torch.bench.select_slab import select_group as measure
+
+    try:
+        row = measure(st, d, aggs, matched)
+    except AssertionError as e:
+        fail(str(e))
+    if row is not None:
+        row["bound_ms"] = bound(*row["work"])[0]
+    return row
+
+
+def select_check(eng, cf_name, batch, out, dev) -> list:
+    """``select_group`` on every replica group of an answered ``read_many``
+    batch (``out``: its answers, whose reports say which replica served
+    each query), its launches left out of the path's counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.slab_locate import scan_agg_locate
+
+    cf = eng.column_families[cf_name]
+    handles = {r.replica_id: r for r in cf.replicas}
+    groups: dict[int, list] = {}
+    for q, (_, rep) in zip(batch, out):
+        groups.setdefault(rep.replica_id, []).append(q)
+    rows = []
+    for rid, qs in sorted(groups.items()):
+        st = eng._table(cf, handles[rid])._device
+        d = ops.device_query_operands(eng._table(cf, handles[rid]), qs)
+        _, matched, _ = uncounted(lambda: scan_agg_locate(
+            st["keys"], st["values_tile"], d["res_lo"], d["res_hi"], d["slab_lo"], d["slab_hi"], d["limits"],
+            d["sel"], col_parts=st["col_parts"], n_vals=st["n_value_rows"],
+        ))
+        row = uncounted(select_group, st, d, [q.agg for q in qs], matched)
+        if row is not None:
+            rows.append(_select_check_row(rid, row))
+    check(len(rows) > 0, f"{cf_name}: no group of the batch had selects with matches")
+    return rows
+
+
+def _select_check_row(rid, row) -> dict:
+    """One group's select check as the read layer's line holds it: the
+    measured numbers, the bound and the live pairs, without ``work``."""
+    return dict(replica=rid, **{k: v for k, v in row.items() if k not in ("replica", "work", "live")}, **row["live"])
 
 
 def fused_scan_work(st, d, tile) -> tuple[tuple[float, float], dict]:
@@ -680,24 +719,27 @@ def slab_scan_work(slabs, sel, lanes) -> tuple[float, float]:
     return key_bytes + val_bytes + q * (8 * lanes + 12) + 8 * q, pairs * (2 * lanes + 4)
 
 
-def row_slab_kernel_phase(eng, cf_name, batch, dev) -> dict:
+def row_slab_kernel_phase(eng, cf_name, batch, dev) -> tuple[dict, list, dict]:
     """The three row-slab kernels on each replica's launches of the
     row_slab phase, against their plain versions on the same CUDA tensors,
     timed beside their bounds (sums over the three replicas' launches) and,
-    for slab_locate, ``torch.searchsorted`` on the packed key. Returns the
-    kernels' rows and, per replica, the key bytes the queries-outer grid
-    reads by design."""
-    from repro_torch.core.table import slab_bounds_many
+    for slab_locate, ``torch.searchsorted`` on the packed key
+    (``bench.select_slab.slab_locate_turns``). Returns the kernels' rows;
+    per replica, the key bytes the queries-outer grid reads by design; and
+    slab_locate's dependent rounds per replica, the latency of one
+    dependent load (``bench.select_slab.load_latency_ns``) and the latency
+    bound they give."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.scan_agg import (
         scan_agg_qgrid, scan_agg_qgrid_plain, scan_agg_rowstream, scan_agg_rowstream_plain,
     )
-    from repro_torch.kernels.slab_locate import slab_locate, slab_locate_plain
+    from repro_torch.bench.select_slab import LATENCY_BUFFERS, load_latency_ns, slab_locate_turns
 
     cf = eng.column_families[cf_name]
     sum_idx = [i for i, q in enumerate(batch) if q.agg == "sum"]
     rows = {name: [] for name in ROW_SLAB_KERNELS}
     by_design = []  # the queries-outer grid's key traffic, re-read per query
+    rounds = []  # slab_locate's dependent rounds, and a binary search's
     for r in cf.replicas:
         table = eng._table(cf, r)
         st = table._device
@@ -707,35 +749,14 @@ def row_slab_kernel_phase(eng, cf_name, batch, dev) -> dict:
         what = f"replica {r.replica_id}"
 
         # slab_locate, and torch.searchsorted on the packed key as yardstick
-        loc_args = (keys, d["slab_lo"], d["slab_hi"], d["limits"])
-
-        def loc(a=loc_args):
-            return slab_locate(*a)
-
-        def loc_plain(a=loc_args):
-            return slab_locate_plain(*a)
-
-        packed = torch.from_numpy(table.packed).to(dev)
-        bnd = slab_bounds_many(batch, table.layout, table.schema)
-        bnd[:, 1] += 1  # inclusive hi, side="right" == hi + 1, side="left"
-        bnd_t = torch.from_numpy(bnd).to(dev)
-
-        def loc_library(packed=packed, bnd_t=bnd_t):
-            return torch.searchsorted(packed, bnd_t)
-
-        got, want = uncounted(loc), loc_plain()
-        check(torch.equal(got, want), f"slab_locate ({what}): ranks differ from plain")
-        check(torch.equal(got.long(), loc_library()), f"slab_locate ({what}): ranks differ from torch.searchsorted")
+        try:
+            loc, got = uncounted(slab_locate_turns, table, batch)
+        except AssertionError as e:
+            fail(f"{e} ({what})")
         host = host_slabs(table, batch)
         check(np.array_equal(got.cpu().numpy(), host), f"slab_locate ({what}): ranks differ from the host searchsorted")
-        win = (d["limits"][:, 1] - d["limits"][:, 0]).cpu().numpy().astype(np.float64)
-        probes = float(2 * np.ceil(np.log2(win + 1)).sum())
-        work = (4 * lanes * probes + len(batch) * (8 * lanes + 8) + 8 * len(batch), 2 * lanes * probes)
-        rows["slab_locate"].append(dict(
-            replica=r.replica_id, queries=len(batch), max_abs_err=max_abs_diff(got, want),
-            ms=uncounted(time_ms, loc, 20), plain_ms=time_ms(loc_plain, 2), bound_ms=bound(*work)[0],
-            library_ms=time_ms(loc_library, 20), work=work,
-        ))
+        rounds.append(dict(replica=r.replica_id, **loc.pop("rounds")))
+        rows["slab_locate"].append(dict(replica=r.replica_id, bound_ms=bound(*loc["work"])[0], **loc))
 
         # rows outer, on the located slabs
         slabs = got
@@ -776,13 +797,12 @@ def row_slab_kernel_phase(eng, cf_name, batch, dev) -> dict:
         check(torch.equal(kq[:, 1], ks[idx, 1]), f"scan_agg_qgrid ({what}): counts differ from rows outer")
         work = slab_scan_work(host[sum_idx], sel_np[sum_idx], lanes)
         design = len(sum_idx) * keys.shape[1] * (lanes + 1) * 4
-        by_design.append(dict(replica=r.replica_id, bytes=design, bytes_ms=design / PEAK_BYTES_PER_S * 1e3))
+        by_design.append(dict(replica=r.replica_id, bytes=design, bytes_ms=bound(design, 0)[0]))
         rows["scan_agg_qgrid"].append(dict(
             replica=r.replica_id, queries=len(sum_idx), max_abs_err=max_abs_diff(kq[:, 0], kqp[:, 0]),
             ms=uncounted(time_ms, qg, 3), plain_ms=time_ms(qg_plain, 2), bound_ms=bound(*work)[0],
             library_ms=None, work=work,
         ))
-        del packed, bnd_t
 
     report = {}
     for name, per in rows.items():
@@ -792,12 +812,22 @@ def row_slab_kernel_phase(eng, cf_name, batch, dev) -> dict:
             max_abs_err=max(x["max_abs_err"] for x in per), ms=sum(x["ms"] for x in per),
             plain_ms=sum(x["plain_ms"] for x in per), bound_ms=b, bound_by=by,
             library_ms=None if None in lib else sum(lib),
+            **{k: sum(x[k] for x in per) for k in ("device_ms", "library_device_ms") if k in per[0]},
             per=f"batch of {per[0]['queries']} on each of {len(per)} replicas ({len(per)} launches)",
             groups=[{k: v for k, v in x.items() if k != "work"} for x in per],
         )
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return report, by_design
+    # slab_locate's latency bound: its dependent rounds times one dependent
+    # load's latency, from device memory and from L2
+    latency = {name: load_latency_ns(dev, n_bytes) for name, n_bytes in LATENCY_BUFFERS.items()}
+    torch.cuda.empty_cache()
+    most = max(x["kary"] for x in rounds)
+    slab = dict(
+        rounds=rounds, load_latency_ns=latency,
+        latency_bound_ms={name: most * ns * 1e-6 for name, ns in latency.items()},
+    )
+    return report, by_design, slab
 
 
 def views_phase(base_eng, key_cols, value_cols, writes, batches, oracles, dev) -> dict:
@@ -851,6 +881,8 @@ def views_phase(base_eng, key_cols, value_cols, writes, batches, oracles, dev) -
             boundary_launches=bl.launches - before[2],
         ))
         served += checked(list(zip(batch, out)), oracles[0], f"views batch {b}")
+        if b == 0:
+            selects = {"orders_v_before_writes": select_check(eng, "orders_v", batch, out, dev)}
     wide = wide_batch()
     served += checked(list(zip(wide, eng.read_many("orders_v", wide))), oracles[0], "views wide")
     scalar = batches[1][::16]
@@ -876,6 +908,7 @@ def views_phase(base_eng, key_cols, value_cols, writes, batches, oracles, dev) -
     out = eng.read_many("orders_v", batches[2])
     check(bl.launches > launches_before, "no boundary rescan after the writes")
     served_w = checked(list(zip(batches[2], out)), oracles[2], "views after the writes")
+    selects["orders_v_after_writes"] = select_check(eng, "orders_v", batches[2], out, dev)
     served_w += checked(list(zip(wide, eng.read_many("orders_v", wide))), oracles[2], "views wide after the writes")
     check(served_w > 0, "no view hit after the writes")
 
@@ -887,7 +920,7 @@ def views_phase(base_eng, key_cols, value_cols, writes, batches, oracles, dev) -
         create_ms=create_ms, batches=per_batch, write_ms=write_ms, launches=launches,
         view_hits=stats["view_hits"], view_boundary_rows=stats["view_boundary_rows"],
         view_rebuilds=stats["view_rebuilds"], compactions=stats["compactions"],
-        result_cache_hits=stats["result_cache_hits"],
+        result_cache_hits=stats["result_cache_hits"], select_checks=selects,
     )
 
 
@@ -1217,6 +1250,7 @@ def run(args, dev) -> None:
 
     # 4. reads
     batch_ms, write_ms = [], []
+    select_checks = {}  # select_compact vs plain on the replica groups, per state
 
     def reads():
         outs = []
@@ -1238,6 +1272,7 @@ def run(args, dev) -> None:
         for b, (batch, out) in enumerate(zip(batches, outs)):
             check_answers(eng, "orders", list(zip(batch, out)), oracles[0], f"batch {b} before writes")
         check_answers(eng, "orders", list(zip(wide, wide_out)), oracles[0], "wide")
+        select_checks["orders_before_writes"] = select_check(eng, "orders", batches[0], outs[0], dev)
 
     phases.run("reads", reads)
     print(f"read_many batch ms (host clock): {[round(x, 3) for x in batch_ms]}", flush=True)
@@ -1250,7 +1285,9 @@ def run(args, dev) -> None:
         for name in ROW_SLAB_KERNELS:
             check(launches[name] > 0, f"kernel {name} was not launched on the row-slab path")
         info["launches"] = launches
-        rows, info["qgrid_key_bytes_by_design"] = row_slab_kernel_phase(eng, "orders", slab_batch, dev)
+        rows, info["qgrid_key_bytes_by_design"], info["slab_locate"] = row_slab_kernel_phase(
+            eng, "orders", slab_batch, dev
+        )
         report.update(rows)
         return info
 
@@ -1332,6 +1369,7 @@ def run(args, dev) -> None:
     fresh = read_batches(n_rows, args.seed + 3)[0]
     group_report, read_layer = phases.run("groups", group_phase, eng, "orders", fresh, dev)
     report.update(group_report)
+    select_checks["orders_after_writes"] = read_layer.pop("select_groups")
 
     # 9. the views path: its own launch counts, from 0
     veng, views = phases.run(
@@ -1339,6 +1377,8 @@ def run(args, dev) -> None:
     )
     for name in VIEW_KERNELS:
         launches[name] = views["launches"][name]
+    select_checks.update(views.pop("select_checks"))
+    read_layer["select_checks"] = select_checks
     oracles.clear()
 
     # 10. the view kernels against their plain versions

@@ -11,7 +11,7 @@ same batch of Q1/Q2 sums through five engines, per batch size:
 * ``rowgrid`` — ``table_scan_device_many(grid="rows_outer")`` over host
   slabs: rows outer, the columns stream once per batch;
 * ``rowgrid_device_slabs`` — the same scan with ``slabs=None``: the
-  resident table locates its slabs with the binary-search kernel
+  resident table locates its slabs with the k-ary search kernel
   (``slab_many`` → ``slab_locate``);
 * ``fused``   — ``table_execute_device_many``: one fused locate+scan.
 

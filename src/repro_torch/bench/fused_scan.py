@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import time
 
 import torch
@@ -47,10 +48,51 @@ from ..kernels.block_agg import BLOCK_ROWS, block_sums, scan_tile
 from ..kernels.ops import device_query_operands
 from ..kernels.slab_locate import live_tile_pairs, scan_agg_locate
 
-__all__ = ["device_ms", "run"]
+__all__ = ["PEAK_BYTES_PER_S", "PEAK_OPS_PER_S", "bound_ms", "card_line", "device_ms", "events_ms", "run"]
 
 WRITE_ROWS = 20_000
+_SESSIONS = 3  # profiler sessions device_ms tries before it raises
 _FLUSH_BYTES = 160 << 20  # a write this large evicts the L2 cache
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth,
+# and the float32 rate outside the tensor cores, used here as the peak for
+# the kernels' scalar integer compares (int32 compares run no faster).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+
+def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take for this work, in ms: the larger
+    of the bytes over the memory rate and the operations over the peak
+    rate, and which of the two it is (``"bytes"`` or ``"operations"``)."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip()
+
+
+def events_ms(fn, reps: int) -> float:
+    """Mean time per call of ``fn`` between CUDA events over ``reps`` calls,
+    after one warm-up: the device's time with the host's gaps between
+    launches."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def device_ms(fn, reps: int, names: tuple[str, ...], between=None) -> float:
@@ -62,29 +104,34 @@ def device_ms(fn, reps: int, names: tuple[str, ...], between=None) -> float:
     it leaves out the host's time between launches, which exceeds a short
     kernel's own. It averages the launches the profiler recorded: in a
     process that has run many profiler sessions, a session may miss some
-    of its launches, and dividing by ``reps`` would then undercount.
-    Raises if a name recorded none."""
+    of its launches, and dividing by ``reps`` would then undercount. A
+    session that recorded no launch of a name (this happened once on an
+    H100, for a 3 us kernel, in the middle of ``chip_smoke.py``) is run
+    again, up to ``_SESSIONS`` sessions; then it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if between is not None:
-                between()
-            fn()
-        torch.cuda.synchronize()
-    durations = {n: [] for n in names}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for n in names:
-            if n in ev.name:
-                durations[n].append(ev.time_range.end - ev.time_range.start)
-    for n, d in durations.items():
-        if not d:
-            raise RuntimeError(f"the profiler recorded no launch of a kernel named like {n!r}")
-    return sum(sum(d) / len(d) for d in durations.values()) / 1e3
+    for _ in range(_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if between is not None:
+                    between()
+                fn()
+            torch.cuda.synchronize()
+        durations = {n: [] for n in names}
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for n in names:
+                if n in ev.name:
+                    durations[n].append(ev.time_range.end - ev.time_range.start)
+        if all(durations.values()):
+            return sum(sum(d) / len(d) for d in durations.values()) / 1e3
+    missing = [n for n, d in durations.items() if not d]
+    raise RuntimeError(
+        f"the profiler recorded no launch of a kernel named like {missing[0]!r} in {_SESSIONS} sessions"
+    )
 
 
 def _timings(fn, names, flush) -> dict:

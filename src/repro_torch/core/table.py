@@ -417,7 +417,7 @@ class SortedTable:
         """Row index slabs ``int64[Q, 2]`` for a query batch.
 
         A resident table holding a single sorted run locates them on its
-        device with the binary-search kernel
+        device with the k-ary search kernel
         (``kernels.ops.table_slab_locate_many``). Every other table (host
         tables, and resident tensors with appended runs, whose device row
         order is not sorted) takes one vectorized ``np.searchsorted`` over

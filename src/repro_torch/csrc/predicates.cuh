@@ -1,8 +1,8 @@
 // Shared device helpers for the read-path kernels (scan_locate.cu,
 // select_compact.cu, block_sums.cu, scan_agg.cu, slab_rank.cu): the
-// resident key layout, the residual and slab predicates, the warp
-// reduction, and the in-block float order of the sum contract with the
-// staging tile that order depends on.
+// resident key layout, the residual predicate, a column's value as one
+// int64, the warp reduction, and the in-block float order of the sum
+// contract with the staging tile that order depends on.
 //
 // Layout (kernels/ops.py): key lanes are int32 rows of a [K_pad, N_pad]
 // row-major tensor, lane l of row r at keys[l * n_pad + r]. A logical key
@@ -52,26 +52,12 @@ __device__ __forceinline__ bool residual_ok(const int32_t* tk, I ts, I i,
   return true;
 }
 
-// key tuple >= bound tuple, lexicographic over n lanes (MSB lane first).
-template <typename I>
-__device__ __forceinline__ bool lex_ge(const int32_t* tk, I ts, I i,
-                                       const int32_t* b, int n) {
-  for (int l = 0; l < n; ++l) {
-    const int32_t k = tk[l * ts + i];
-    if (k != b[l]) return k > b[l];
-  }
-  return true;
-}
-
-// key tuple <= bound tuple, lexicographic over n lanes.
-template <typename I>
-__device__ __forceinline__ bool lex_le(const int32_t* tk, I ts, I i,
-                                       const int32_t* b, int n) {
-  for (int l = 0; l < n; ++l) {
-    const int32_t k = tk[l * ts + i];
-    if (k != b[l]) return k < b[l];
-  }
-  return true;
+// A logical column's value at its first lane as one int64 whose order is
+// the column's: a wide column (hi, lo) maps to hi * 2^32 + (lo + 2^31), so
+// comparing it compares the lane pair lexicographically. The fused scan's
+// and the select compaction's range reductions reduce these.
+__device__ __forceinline__ int64_t col_value(int32_t hi, int32_t lo, bool pair) {
+  return pair ? (int64_t)hi * 4294967296LL + ((int64_t)lo + 2147483648LL) : (int64_t)hi;
 }
 
 // Butterfly reduction over a full warp; the shuffle pattern is fixed, so

@@ -162,12 +162,6 @@ __device__ __forceinline__ bool lex_less(const int32_t (&x)[AL], const int32_t (
   return lt;
 }
 
-// A logical column's value at its first lane l as one int64 whose order is
-// the column's: a wide column (hi, lo) maps to hi * 2^32 + (lo + 2^31).
-__device__ __forceinline__ int64_t col_value(int32_t hi, int32_t lo, bool pair) {
-  return pair ? (int64_t)hi * 4294967296LL + ((int64_t)lo + 2147483648LL) : (int64_t)hi;
-}
-
 // LANES: the key lane count, unrolled into registers; 0 takes any count up
 // to kMaxLanes and reads the rows from the staging buffer.
 template <int LANES>

@@ -7,7 +7,7 @@ merge_run_positions  — merge ranks of a resident run stack (csrc/merge_rank.cu
 ecdf_hist            — histogram for the ECDF refresh (csrc/ecdf_hist.cu)
 block_sums           — per-block partial sums for views (csrc/block_sums.cu)
 boundary_block_sums  — boundary-block rescans for views (csrc/block_sums.cu)
-slab_locate          — slab location by binary search (csrc/slab_rank.cu)
+slab_locate          — slab location by k-ary search (csrc/slab_rank.cu)
 scan_agg_rowstream   — row-slab scan, rows outer (csrc/scan_agg.cu)
 scan_agg_qgrid       — row-slab scan, queries outer (csrc/scan_agg.cu)
 

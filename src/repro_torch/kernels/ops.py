@@ -14,7 +14,7 @@ select-compaction launch when the batch has selects with matches.
 port's, so both implementations can be fed identical resident arrays.
 
 The row-slab read path: ``table_slab_locate_many`` gives a single-run
-resident table's row slabs from the binary-search kernel (the device half
+resident table's row slabs from the k-ary search kernel (the device half
 of ``SortedTable.slab_many``), and ``table_scan_device_many`` scans a
 batch over such slabs with the rows-outer or the queries-outer kernel
 (``scan_agg``), its counts in a float32 lane exact to 2**24 rows as the
@@ -516,7 +516,7 @@ def table_scan_device_many(
 
     The table must be device-resident and hold a single sorted run, since
     the slabs index the sorted order. ``slabs`` takes ``slab_many`` output a caller already has; without
-    it, ``table.slab_many`` locates them (the binary-search kernel on a
+    it, ``table.slab_many`` locates them (the k-ary search kernel on a
     resident table). ``grid="rows_outer"`` serves any mix of sums over
     value columns and counts through a per-query value-row selector;
     ``grid="queries_outer"`` (the baseline) takes uniform-aggregation,
@@ -580,7 +580,7 @@ def table_scan_device_many(
 
 def table_slab_locate_many(table, queries) -> np.ndarray:
     """Device-side ``SortedTable.slab_many``: int64 ``[Q, 2]`` row slabs
-    from the binary-search kernel (:func:`slab_locate`) over the resident
+    from the k-ary search kernel (:func:`slab_locate`) over the resident
     key lanes. The resident tensors must hold a single sorted run: with
     appended runs the device row order is not the table's."""
     queries = list(queries)

@@ -14,12 +14,15 @@ measurement and tests.
 ``select_compact`` — per query, the ascending row indices that pass the
 residual predicate inside its window, as one flat int32 array sized by the
 fused scan's match counts. CUDA tensors run ``csrc/select_compact.cu``;
-CPU tensors run :func:`select_compact_plain`.
+CPU tensors run :func:`select_compact_plain`. The kernel counts matches
+only on the (query, segment) pairs its skip rule leaves live;
+:func:`select_live_pairs` is that rule in plain PyTorch.
 
 ``slab_locate`` — per query, the two searchsorted ranks of its slab keys
 inside its row window of a sorted run: the rows below ``slab_lo`` and the
-rows at or below ``slab_hi``. CUDA tensors run ``csrc/slab_rank.cu``;
-CPU tensors run :func:`slab_locate_plain`.
+rows at or below ``slab_hi``. CUDA tensors run ``csrc/slab_rank.cu``, a
+warp-wide k-ary search whose steps :func:`kary_ranks_emulated` writes
+out; CPU tensors run :func:`slab_locate_plain`.
 
 All take the reference's operand layout (``repro/kernels/slab_locate.py``):
 key lanes int32 ``[K_pad, N]``, value tile float32 ``[V_pad, N]``, per-query
@@ -46,13 +49,18 @@ from .block_agg import BLOCK_ROWS, block_partials
 
 __all__ = [
     "BLOCK_ROWS",
+    "KARY_PROBES",
     "SCAN_QUERY_CHUNK",
+    "SELECT_SEG_ROWS",
     "fold_blocks",
+    "kary_ranks_emulated",
+    "kary_rounds",
     "live_tile_pairs",
     "scan_agg_locate",
     "scan_agg_locate_plain",
     "select_compact",
     "select_compact_plain",
+    "select_live_pairs",
     "slab_locate",
     "slab_locate_plain",
 ]
@@ -71,10 +79,23 @@ _SCAN_SIG = {
 }
 _SELECT_SIG = {
     "select_compact_launch": [
-        _P, _I64, _I, _I, _U32, _P, _P, _P, _I, _P, _I, _P, _P, _P,
+        _P, _I64, _I, _I, _U32, _P, _P, _P, _I, _P, _I, _P, _P, _I64, _P, _P, _P,
     ]
 }
-_RANK_SIG = {"slab_rank_launch": [_P, _I64, _I, _P, _P, _P, _I, _P, _P]}
+#: Bytes of one entry of the select compaction's pair list (``Pair``).
+_PAIR_BYTES = 24
+_RANK_SIG = {
+    "slab_rank_launch": [_P, _I64, _I, _P, _P, _P, _I, _P, _P],
+    # the latency yardstick beside it (bench.select_slab.load_latency_ns)
+    "load_chase_launch": [_P, _I64, _P, _P],
+}
+
+
+def _raw_stream(device) -> int:
+    """The current CUDA stream of ``device`` as a pointer, without the
+    ``torch.cuda.Stream`` object ``current_stream`` builds: a wrapper's
+    host time is most of a short kernel's wall."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _col_parts(col_parts, n_lanes_bound: int) -> tuple[int, ...]:
@@ -201,6 +222,43 @@ def _col_values(lanes, col_parts):
     return out
 
 
+def _hull_chunks(keys, res_lo, res_hi, limits, col_parts, rows: int, n_rows: int):
+    """The residual half both skip rules share. Cuts the key lanes into
+    units of ``rows`` rows and yields, per chunk of ``SCAN_QUERY_CHUNK``
+    queries with a nonempty window, ``(s, e, k, taken, meets, res)``: the
+    chunk's queries ``[s, e)``; the padded lanes, int64 ``[K_ex, units,
+    rows]``; the rows inside the hull of the chunk's nonempty windows and
+    below ``n_rows``, bool ``[units, rows]``; per (query, unit), whether
+    the query's window meets the unit and the unit holds such a row; and
+    whether every logical column's range over those rows meets the
+    query's ``[res_lo, res_hi)``."""
+    n_lanes = sum(col_parts)
+    n = keys.shape[1]
+    n_units = -(-n // rows)
+    k = torch.nn.functional.pad(keys[:n_lanes].long(), (0, n_units * rows - n)).view(n_lanes, n_units, rows)
+    row = torch.arange(n_units * rows, device=keys.device).view(n_units, rows)
+    starts = row[:, 0]
+    cols = _col_values(k, col_parts)
+    lim = limits.long()
+    for s in range(0, res_lo.shape[0], SCAN_QUERY_CHUNK):
+        e = min(res_lo.shape[0], s + SCAN_QUERY_CHUNK)
+        lo, hi = lim[s:e, 0], lim[s:e, 1]
+        full = lo < hi
+        if not bool(full.any()):
+            continue
+        taken = (row >= int(lo[full].min())) & (row < min(int(hi[full].max()), n_rows, n))
+        meets = taken.any(dim=1)[None, :] & full[:, None]
+        meets &= (lo[:, None] < starts[None, :] + rows) & (hi[:, None] > starts[None, :])
+        res = torch.ones_like(meets)
+        r_lo = _col_values(res_lo[s:e].long().T, col_parts)
+        r_hi = _col_values(res_hi[s:e].long().T, col_parts)
+        for v, b_lo, b_hi in zip(cols, r_lo, r_hi):
+            c_min = torch.where(taken, v, _I64_MAX).amin(dim=1)[None, :]
+            c_max = torch.where(taken, v, _I64_MIN).amax(dim=1)[None, :]
+            res &= (c_min < b_hi[:, None]) & (c_max >= b_lo[:, None])
+        yield s, e, k, taken, meets, res
+
+
 def live_tile_pairs(
     keys, res_lo, res_hi, slab_lo, slab_hi, limits, *, col_parts, n_rows: int, tile: int
 ) -> torch.Tensor:
@@ -219,25 +277,8 @@ def live_tile_pairs(
     measurement and tests, not the read path."""
     col_parts = _col_parts(col_parts, res_lo.shape[1])
     n_lanes = sum(col_parts)
-    n = keys.shape[1]
-    q = res_lo.shape[0]
-    n_tiles = -(-n // tile)
-    dev = keys.device
-    k = torch.nn.functional.pad(keys[:n_lanes].long(), (0, n_tiles * tile - n))
-    k = k.view(n_lanes, n_tiles, tile)
-    rows = torch.arange(n_tiles * tile, device=dev).view(n_tiles, tile)
-    starts = rows[:, 0]
-    cols = _col_values(k, col_parts)
-    live = torch.zeros((q, n_tiles), dtype=torch.bool, device=dev)
-    lim = limits.long()
-    for s in range(0, q, SCAN_QUERY_CHUNK):
-        e = min(q, s + SCAN_QUERY_CHUNK)
-        lo, hi = lim[s:e, 0], lim[s:e, 1]
-        full = lo < hi
-        if not bool(full.any()):
-            continue
-        h_lo, h_hi = int(lo[full].min()), min(int(hi[full].max()), n_rows, n)
-        taken = (rows >= h_lo) & (rows < h_hi)
+    live = torch.zeros((res_lo.shape[0], -(-keys.shape[1] // tile)), dtype=torch.bool, device=keys.device)
+    for s, e, k, taken, meets, res in _hull_chunks(keys, res_lo, res_hi, limits, col_parts, tile, n_rows):
         tmin, tmax = [], []
         at_min, at_max = taken, taken
         for lane in range(n_lanes):
@@ -254,15 +295,32 @@ def live_tile_pairs(
             le = (a <= b) if le is None else (a < b) | ((a == b) & le)
             a, b = tmax[lane][None, :], slab_lo[s:e, lane : lane + 1].long()
             ge = (a >= b) if ge is None else (a > b) | ((a == b) & ge)
-        res = torch.ones_like(le)
-        r_lo = _col_values(res_lo[s:e].long().T, col_parts)
-        r_hi = _col_values(res_hi[s:e].long().T, col_parts)
-        for v, b_lo, b_hi in zip(cols, r_lo, r_hi):
-            c_min = torch.where(taken, v, _I64_MAX).amin(dim=1)[None, :]
-            c_max = torch.where(taken, v, _I64_MIN).amax(dim=1)[None, :]
-            res &= (c_min < b_hi[:, None]) & (c_max >= b_lo[:, None])
-        window = full[:, None] & (lo[:, None] < starts[None, :] + tile) & (hi[:, None] > starts[None, :])
-        live[s:e] = window & taken.any(dim=1)[None, :] & ((le & ge) | res)
+        live[s:e] = meets & ((le & ge) | res)
+    return live
+
+
+#: Rows of one segment of the select compaction's skip rule
+#: (``kSegRows`` in ``csrc/select_compact.cu``): a warp's unit.
+SELECT_SEG_ROWS = 256
+
+
+def select_live_pairs(keys, res_lo, res_hi, limits, *, col_parts, rows: int = SELECT_SEG_ROWS) -> torch.Tensor:
+    """bool ``[Q, ceil(N / rows)]``: the (query, segment) pairs the select
+    compaction's counting pass evaluates, by its skip rule (the residual
+    half of :func:`live_tile_pairs`), with segments of ``rows`` rows. Per
+    chunk of ``SCAN_QUERY_CHUNK`` queries the kernel takes, of each
+    segment, the rows inside the hull of the chunk's nonempty windows and
+    reduces each logical column to its minimum and maximum; query ``q`` is
+    live on the segment if its window meets the segment, the segment
+    holds such a row, and every column's range meets ``[res_lo, res_hi)``.
+    A row a select matches lies in a live pair at any ``rows`` (a wider
+    segment's ranges are wider), so the kernel's skipping changes no
+    index. Plain PyTorch on any device, for measurement and tests."""
+    col_parts = _col_parts(col_parts, res_lo.shape[1])
+    n = keys.shape[1]
+    live = torch.zeros((res_lo.shape[0], -(-n // rows)), dtype=torch.bool, device=keys.device)
+    for s, e, _, _, meets, res in _hull_chunks(keys, res_lo, res_hi, limits, col_parts, rows, n):
+        live[s:e] = meets & res
     return live
 
 
@@ -397,14 +455,22 @@ def select_compact(
     n_blocks = -(-n_pad // BLOCK_ROWS)
     if q == 0 or n_blocks == 0 or out.numel() == 0:
         return out
-    offsets_t = torch.from_numpy(offsets).to(device)
-    base = torch.empty((n_blocks, q), dtype=torch.int64, device=device)
+    # pinned, so that the upload waits for nothing queued on the stream
+    offsets_t = torch.from_numpy(offsets).pin_memory().to(device, non_blocking=True)
+    # one scratch buffer: the pair list (a pair holds a match and is one of
+    # the Q * n_blocks (query, block) pairs, so either total bounds it), the
+    # block counts int32 [Q, n_blocks], the list's length
+    cap = min(out.numel(), q * n_blocks)
+    count_words = -(-q * n_blocks // 2)
+    scratch = torch.empty(cap * _PAIR_BYTES // 8 + count_words + 1, dtype=torch.int64, device=device)
+    pairs = scratch.data_ptr()
+    counts_p = pairs + cap * _PAIR_BYTES
     lib = _build.load("select_compact", _SELECT_SIG)
     code = lib.select_compact_launch(
         keys.data_ptr(), n_pad, k_ex, len(col_parts), _wide_mask(col_parts),
         res_lo.data_ptr(), res_hi.data_ptr(), limits.data_ptr(), q,
-        offsets_t.data_ptr(), n_blocks, base.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
+        offsets_t.data_ptr(), n_blocks, counts_p, pairs, cap, counts_p + 8 * count_words,
+        out.data_ptr(), _raw_stream(device),
     )
     _build.check(code, "select_compact_launch")
     select_compact.launches += 1
@@ -428,6 +494,64 @@ def slab_locate_plain(keys, slab_lo, slab_hi, limits):
         out[s:e, 0] = (valid & ~ge).sum(dim=1, dtype=torch.int32)
         out[s:e, 1] = (valid & le).sum(dim=1, dtype=torch.int32)
     return out
+
+
+#: Rows one round of the slab location kernel probes: one per lane of
+#: its warp (``csrc/slab_rank.cu``).
+KARY_PROBES = 32
+
+
+def kary_rounds(n: int) -> int:
+    """Dependent probe rounds of the k-ary search in a window of ``n``
+    rows, at most: while more than ``KARY_PROBES`` rows are left, a round
+    probes ``KARY_PROBES`` evenly spaced rows and keeps one of the
+    ``KARY_PROBES + 1`` parts between them (at most ``n // 33`` rows);
+    a last round reads the rows left."""
+    rounds = 0
+    while n > KARY_PROBES:
+        n //= KARY_PROBES + 1
+        rounds += 1
+    return rounds + (n > 0)
+
+
+def kary_ranks_emulated(keys, slab_lo, slab_hi, limits) -> torch.Tensor:
+    """int32 ``[Q, 2]``: the slab location kernel's k-ary search written
+    out step by step in numpy, probe positions and interval updates as
+    the kernel computes them, for tests. Inside a sorted window it equals
+    :func:`slab_locate_plain` (the rank form) and ``searchsorted``."""
+    k = keys.cpu().numpy().astype(np.int64)
+    n_pad = k.shape[1]
+    lim = limits.cpu().numpy().astype(np.int64)
+    bounds = (slab_lo.cpu().numpy().astype(np.int64), slab_hi.cpu().numpy().astype(np.int64))
+    n_lanes = bounds[0].shape[1]
+    out = np.zeros((lim.shape[0], 2), np.int32)
+
+    def below(rows, b, side):
+        # branch-free lexicographic compare from the last lane up: side 0
+        # key < b, side 1 key <= b
+        lt = np.full(rows.shape, side == 1)
+        for lane in reversed(range(n_lanes)):
+            x = k[lane, rows]
+            lt = (x < b[lane]) | ((x == b[lane]) & lt)
+        return lt
+
+    i = np.arange(KARY_PROBES, dtype=np.int64)
+    for q in range(lim.shape[0]):
+        start = max(lim[q, 0], 0)
+        stop = max(min(lim[q, 1], n_pad), start)
+        for side in (0, 1):
+            b = bounds[side][q]
+            lo, hi = start, stop
+            while hi - lo > KARY_PROBES:
+                p = lo + (i + 1) * (hi - lo) // (KARY_PROBES + 1)
+                j = int(below(p, b, side).sum())
+                if j > 0:
+                    lo = int(p[j - 1]) + 1
+                if j < KARY_PROBES:
+                    hi = int(p[j])
+            p = lo + i[: hi - lo]
+            out[q, side] = lo + int(below(p, b, side).sum()) - start
+    return torch.from_numpy(out).to(keys.device)
 
 
 def slab_locate(
@@ -461,7 +585,7 @@ def slab_locate(
     lib = _build.load("slab_rank", _RANK_SIG)
     code = lib.slab_rank_launch(
         keys.data_ptr(), keys.shape[1], k_ex, slab_lo.data_ptr(), slab_hi.data_ptr(),
-        limits.data_ptr(), q, out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        limits.data_ptr(), q, out.data_ptr(), _raw_stream(device),
     )
     _build.check(code, "slab_rank_launch")
     slab_locate.launches += 1

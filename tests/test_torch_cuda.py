@@ -585,3 +585,150 @@ def test_fused_scan_matches_plain_on_a_tpch_run_stack(cuda_device):
     d = ops.device_query_operands(table, qs)
     args = (d["res_lo"], d["res_hi"], d["slab_lo"], d["slab_hi"], d["limits"])
     _fused_matches_plain(st["keys"], st["values_tile"], args, d["sel"], st["col_parts"], st["n_value_rows"])
+
+
+def _select_case(col_parts, n, n_q, seed, device):
+    """Random key lanes (narrow columns of 6 bits, wide of 40) and select
+    operands: each query restricts two random columns to a quarter of
+    their domain and leaves the rest whole; query 0 takes every row (its
+    matches span every block), query 1 none (an empty box), and every
+    tenth query a random window inside the table. Counts from the plain
+    match mask."""
+    rng = np.random.default_rng(seed)
+    bits = [40 if p == 2 else 6 for p in col_parts]
+
+    def lanes(vals):
+        out = []
+        for v, p in zip(vals, col_parts):
+            out += [v >> 30, v & ((1 << 30) - 1)] if p == 2 else [v]
+        return np.stack(out)
+
+    keys = lanes([rng.integers(0, 1 << b, n, dtype=np.int64) for b in bits])
+    lo = np.zeros((len(bits), n_q), np.int64)
+    hi = np.array([[1 << b] * n_q for b in bits], np.int64)
+    for q in range(2, n_q):
+        for c in rng.choice(len(bits), size=min(2, len(bits)), replace=False):
+            lo[c, q] = rng.integers(0, 1 << bits[c])
+            hi[c, q] = lo[c, q] + (1 << bits[c]) // 4
+    hi[:, 1] = lo[:, 1]
+    limits = np.tile(np.array([0, n], np.int64), (n_q, 1))
+    limits[10::10] = np.sort(rng.integers(0, n + 1, (len(limits[10::10]), 2)), axis=1)
+    t = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device) for a in (keys, lanes(lo).T, lanes(hi).T, limits)]
+    return t, tuple(col_parts)
+
+
+def _select_matches_plain(keys, res_lo, res_hi, limits, col_parts):
+    from repro_torch.kernels.slab_locate import _residual_mask, _window
+
+    counts = _residual_mask(keys, res_lo, res_hi, col_parts, _window(limits, keys.shape[1])).sum(dim=1).cpu().numpy()
+    launches = K.KERNELS["select_compact"].launches
+    got = select_compact(keys, res_lo, res_hi, limits, counts, col_parts=col_parts)
+    assert K.KERNELS["select_compact"].launches == launches + 1
+    want = select_compact_plain(keys, res_lo, res_hi, limits, counts, col_parts=col_parts)
+    assert got.shape == (int(counts.sum()),)
+    assert torch.equal(got, want)
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "col_parts", [(1,), (1, 1, 1), (1,) * 8, (2, 2, 2, 1, 1, 1), (2,) * 30], ids=["1", "3", "8", "9", "60"]
+)
+def test_select_compact_matches_plain_at_every_lane_count(cuda_device, col_parts):
+    """More than 128 selects (three query chunks), a ragged last block,
+    a select matching every row and one matching none."""
+    (keys, res_lo, res_hi, limits), cp = _select_case(col_parts, 5 * 8192 + 1234, 300, sum(col_parts), cuda_device)
+    counts = _select_matches_plain(keys, res_lo, res_hi, limits, cp)
+    assert counts[0] == keys.shape[1] and counts[1] == 0
+
+
+@pytest.mark.cuda
+def test_select_compact_matches_plain_on_a_tpch_run_stack(cuda_device):
+    """The main path's selects on a clerk-led orders table with two
+    appended runs, and the same table's older state, whose capacity
+    padding holds the newer rows."""
+    kc, vc = generate_orders(0.2, seed=50)
+    layout = ("clerk", "orderdate", "custkey")
+    table = T.SortedTable.from_columns(kc, vc, layout, orders_schema()).place_on_device(cuda_device)
+    older = table
+    kw, vw = generate_orders(0.02, seed=51)
+    for i in range(2):
+        sl = slice(i * 15_000, (i + 1) * 15_000)
+        table = table.merge_run(sort_run({c: v[sl] for c, v in kw.items()}, {c: v[sl] for c, v in vw.items()}, layout, table.schema))
+    assert table._device["n_runs"] == 3
+    wl = T.tpch.q1_q2_workload(n_instances=300, n_rows=len(kc["custkey"]), seed=52)
+    qs = [T.Query(filters=q.filters, agg="select") for q in wl.queries]
+    for t in (table, older):
+        st = t._device
+        d = ops.device_query_operands(t, qs)
+        counts = _select_matches_plain(st["keys"], d["res_lo"], d["res_hi"], d["limits"], st["col_parts"])
+        assert counts.sum() > 0
+
+
+def _sorted_lanes(bits, n, seed, domain, device):
+    """A sorted run of ``n`` rows (columns of ``bits``, first most
+    significant, drawn from ``[0, domain)``) as key lanes on ``device``,
+    its packed int64 key, and the packing."""
+    rng = np.random.default_rng(seed)
+    cols = [rng.integers(0, min(1 << b, domain), n, dtype=np.int64) for b in bits]
+    shifts = [sum(bits[i + 1 :]) for i in range(len(bits))]
+    packed = np.sort(sum(c << s for c, s in zip(cols, shifts)))
+    cols = [(packed >> s) & ((1 << b) - 1) for b, s in zip(bits, shifts)]
+    lanes = []
+    for c, b in zip(cols, bits):
+        lanes += [c >> 30, c & ((1 << 30) - 1)] if b > 30 else [c]
+    return torch.from_numpy(np.stack(lanes).astype(np.int32)).to(device), packed, shifts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,domain", [((20, 12, 13), 1 << 20), ((60, 2), 1 << 60), ((12,), 64)],
+                         ids=["orders_lanes", "wide_60_bit", "duplicates"])
+def test_slab_locate_matches_plain_and_searchsorted_at_sf5(cuda_device, bits, domain):
+    """7.5 M rows (TPC-H SF 5): windows of 0, 1, 32, 33, 1089 rows and the
+    whole run, bounds at existing keys, random, below and above every
+    key, and an empty query; the kernel equals the rank form, the k-ary
+    emulation and torch.searchsorted on the packed key."""
+    from repro_torch.kernels.slab_locate import kary_ranks_emulated
+
+    n = 7_500_000
+    keys, packed, shifts = _sorted_lanes(bits, n, 60, domain, cuda_device)
+    rng = np.random.default_rng(61)
+    top = sum(((1 << b) - 1) << s for b, s in zip(bits, shifts))
+    lo_keys, hi_keys, limits = [], [], []
+    for w in (0, 1, 32, 33, 1089, n):
+        for kind in ("row", "random", "below", "above", "span"):
+            s = int(rng.integers(0, n - w + 1))
+            a, b = {
+                "row": (packed[int(rng.integers(0, n))],) * 2,
+                "random": tuple(sorted(int(x) for x in rng.integers(0, top, 2))),
+                "below": (0, 0),
+                "above": (top, top),
+                "span": (0, top),
+            }[kind]
+            lo_keys.append(int(a))
+            hi_keys.append(int(b))
+            limits.append((s, s + w))
+
+    def lanes(vals):
+        out = []
+        for b, s in zip(bits, shifts):
+            c = (np.array(vals, np.int64) >> s) & ((1 << b) - 1)
+            out += [c >> 30, c & ((1 << 30) - 1)] if b > 30 else [c]
+        return np.stack(out, axis=1)
+
+    slab_lo = np.concatenate([lanes(lo_keys), np.zeros((1, keys.shape[0]), np.int64)])
+    slab_hi = np.concatenate([lanes(hi_keys), np.full((1, keys.shape[0]), -1, np.int64)])
+    limits.append((0, 0))
+    t = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda_device) for a in (slab_lo, slab_hi, np.array(limits))]
+    launches = K.KERNELS["slab_locate"].launches
+    got = slab_locate(keys, *t)
+    assert K.KERNELS["slab_locate"].launches == launches + 1
+    assert torch.equal(got, slab_locate_plain(keys, *t))
+    assert torch.equal(got.cpu(), kary_ranks_emulated(keys, *t).cpu())
+    packed_t = torch.from_numpy(packed).to(cuda_device)
+    for i, (s, e) in enumerate(limits[:-1]):
+        win = packed_t[s:e]
+        want = (torch.searchsorted(win, torch.tensor(lo_keys[i], device=cuda_device), side="left"),
+                torch.searchsorted(win, torch.tensor(hi_keys[i], device=cuda_device), side="right"))
+        assert (int(got[i, 0]), int(got[i, 1])) == (int(want[0]), int(want[1])), (i, s, e)
+    assert got[-1].tolist() == [0, 0]

@@ -162,7 +162,7 @@ def test_slab_locate_windows_inside_the_run():
     np.testing.assert_array_equal(got, np.asarray(rref.slab_locate_batched_ref(keys, slab_lo, slab_hi, limits, n_lanes=3)))
 
 
-@settings(max_examples=10, deadline=None)
+@settings(max_examples=10, deadline=None, derandomize=True)
 @given(seed=st.integers(0, 2**31 - 1), n=st.integers(1, 600), bits_a=st.sampled_from([3, 8, 31, 40, 60]))
 def test_property_slab_locate_matches_searchsorted(seed, n, bits_a):
     """Random schemas (narrow and two-lane wide columns), edge and empty
@@ -267,7 +267,7 @@ def test_qgrid_plain_matches_reference_kernel_and_rowstream():
     )
 
 
-@settings(max_examples=10, deadline=None)
+@settings(max_examples=10, deadline=None, derandomize=True)
 @given(seed=st.integers(0, 2**31 - 1), q=st.integers(1, 20), n=st.integers(0, 500), n_vals=st.integers(1, 4),
        col_parts=st.lists(st.sampled_from([1, 2]), min_size=1, max_size=4))
 def test_property_rowstream_matches_oracle(seed, q, n, n_vals, col_parts):
