@@ -14,9 +14,14 @@ CUDA tensors, at the paths' shapes, and times both.
 Phases, each asserting (a failure exits non-zero and prints no result):
   1. setup      card name and power limit, kernel build
   2. kernels    the compaction's merge-rank kernel on the 9-run stack the
-                write phase folds, and the histogram kernel on a write's
-                column, each vs its plain version (permutation and
-                histogram equal); times, bounds, the library yardstick
+                write phase folds (vs plain and the host merge order) and
+                on a stack of that shape whose appended keys all equal
+                keys of other runs (vs plain); the histogram kernel on a
+                write batch's three key columns, one by one and in the one
+                batched launch the statistics refresh makes, vs plain and
+                np.bincount (repro_torch.bench.write_kernels); times by
+                CUDA events and under torch.profiler, bounds,
+                torch.bincount in turns, an empty launch of the same grid
   3. create     HREngine(n_nodes=6), HR layouts from HRCA over Q1/Q2
   4. reads      4 read_many batches of 256 (1/2 sums, 1/4 counts, 1/4
                 selects), one repeated batch (result-cache hits), a batch
@@ -48,6 +53,8 @@ Phases, each asserting (a failure exits non-zero and prints no result):
   7. writes     8 write-through writes of 20,000 rows (the 8th trips the
                 compaction policy's max_runs), resident state vs a fresh
                 build, 2 more writes, reads checked again over all rows;
+                the main path's launches: merge_run_positions 3 (one
+                compaction a replica), ecdf_hist 10 (one a write);
                 on the appended run stacks slab_many launches nothing and
                 table_scan_device_many raises
   8. groups     one fresh read_many batch of 256; then the fused scan and
@@ -100,8 +107,9 @@ launch counts untouched. The read_layer line's select_checks hold the
 select checks of both column families before and after the writes.
 
 The standard output ends with the kernels line, the per-phase wall times
-and per-layer numbers, the views line, the row-slab line, the batched-read
-line, the card's name and power limit, and ``{"ok": true, "device": ...}``.
+and per-layer numbers, the views line, the write-kernels line (phase 2's
+measurements in full), the row-slab line, the batched-read line, the
+card's name and power limit, and ``{"ok": true, "device": ...}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``--sf`` and ``--seed`` change the scale factor and the data seed).
@@ -376,75 +384,61 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def kernel_phase(key_cols, value_cols, writes, dev):
-    """The write path's kernels on the main path's shapes: the 9-run stack
-    that compaction folds after the 8th write (SF-scale base plus eight
-    appended runs), and a write batch's column for the statistics
-    refresh."""
+    """The write path's kernels on the main path's shapes
+    (``repro_torch.bench.write_kernels``): the 9-run stack that compaction
+    folds after the 8th write (SF-scale base plus eight appended runs),
+    against plain and the host merge order, and a stack of the same shape
+    whose appended keys all equal keys of other runs, against plain; a
+    write batch's three key columns through ``ecdf_hist`` one by one and
+    through the batched call the statistics refresh makes, against plain
+    and ``np.bincount``, beside ``torch.bincount`` in turns and an empty
+    launch of the same grid. Returns the kernels line's rows and the
+    ``write_kernels`` line."""
     import repro_torch.core as T
-    import repro_torch.core.tpch  # noqa: F401  (T.tpch)
-    from repro_torch.kernels.ecdf_hist import ecdf_hist, ecdf_hist_plain
-    from repro_torch.kernels.merge_runs import merge_run_positions, merge_run_positions_plain
+    from repro_torch.bench import write_kernels as W
+    from repro_torch.core.tpch import orders_schema
 
-    schema = T.tpch.orders_schema()
-    table = T.SortedTable.from_columns(key_cols, value_cols, ("clerk", "orderdate", "custkey"), schema)
-    table.place_on_device(dev)
-    k_ex = sum(table._device["col_parts"])
-    report = {}
-
-    # merge ranks of the run stack after the main path's 8 writes
-    for wk, wv in writes[:8]:
-        table = table.merge_run(T.storage.sort_run(wk, wv, table.layout, schema))
+    table = W.run_stack(key_cols, value_cols, writes[:8], dev)
     st = table._device
     starts, n_rows = st["run_starts"], st["n_rows"]
     check(len(starts) == 9, f"merge: expected 9 runs, got {len(starts)}")
-
-    def merge():
-        return merge_run_positions(st["keys"], starts, n_rows, n_lanes=k_ex)
-
-    def merge_plain():
-        return merge_run_positions_plain(st["keys"], starts, n_rows, n_lanes=k_ex)
-
-    pm, pp = merge(), merge_plain()
-    check(torch.equal(pm, pp), "merge_run_positions: permutation differs from plain")
-    check(np.array_equal(pm.cpu().numpy(), st["row_map"]), "merge_run_positions: differs from the host merge order")
-    lens = np.diff(np.asarray(starts + (n_rows,), np.int64))
-    steps = np.ceil(np.log2(lens + 1.0))
-    search_steps = float(sum(lens[r] * (steps.sum() - steps[r]) for r in range(len(lens))))
-    b, by = bound(4 * n_rows * k_ex + 8 * n_rows + 8 * len(lens), search_steps * (k_ex + 2))
-    report["merge_run_positions"] = dict(
-        max_abs_err=max_abs_diff(pm, pp), ms=time_ms(merge, 10), plain_ms=time_ms(merge_plain, 3),
-        bound_ms=b, bound_by=by, library_ms=None,
-    )
-    del table, st
-
-    # histogram of a write batch's custkey column, binned as the
-    # column family's statistics bin it
-    cs = T.TableStats.from_columns({"custkey": key_cols["custkey"][:1]}, schema).columns["custkey"]
-    col = torch.from_numpy(writes[0][0]["custkey"].astype(np.int32)).to(dev)
-    nb, bw = cs.n_bins, cs.bin_width
-
-    def hist():
-        return ecdf_hist(col, n_bins=nb, bin_width=bw)
-
-    def hist_plain():
-        return ecdf_hist_plain(col, n_bins=nb, bin_width=bw)
-
-    def hist_library():
-        return torch.bincount(torch.div(col, bw, rounding_mode="floor"), minlength=nb)
-
-    hk, hp = hist(), hist_plain()
-    check(torch.equal(hk, hp), "ecdf_hist: counts differ from plain")
-    want = np.bincount(writes[0][0]["custkey"] // bw, minlength=nb).astype(np.float32)
-    check(np.array_equal(hk.cpu().numpy(), want), "ecdf_hist: counts differ from np.bincount")
-    b, by = bound(4 * col.numel() + 4 * nb, 3 * col.numel())
-    report["ecdf_hist"] = dict(
-        max_abs_err=max_abs_diff(hk, hp), ms=time_ms(hist, 50),
-        plain_ms=time_ms(hist_plain, 10), bound_ms=b, bound_by=by,
-        library_ms=time_ms(hist_library, 50),
+    k_ex = sum(st["col_parts"])
+    detail = {}
+    try:
+        merge = W.merge_case(st["keys"], starts, n_rows, k_ex, row_map=st["row_map"])
+        dup_keys, dup_starts, dup_n = W.dup_stack(st["keys"], starts[1], k_ex, run_rows=n_rows - starts[-1])
+        del table, st
+        detail["merge_dup"] = W.merge_case(dup_keys, dup_starts, dup_n, k_ex)
+        del dup_keys
+        stats = T.TableStats.from_columns({c: v[:1] for c, v in key_cols.items()}, orders_schema())
+        hist = W.hist_case(writes[0][0], stats, dev)
+    except AssertionError as e:
+        fail(str(e))
+    detail["merge"] = merge
+    detail["hist"] = hist
+    b, by = bound(*W.merge_work(merge["run_rows"], k_ex))
+    # the design's own traffic, beside the function's least (the bound)
+    design = W.merge_design_bytes(merge["run_rows"], k_ex)
+    merge.update(bound_ms=b, design_bytes=design, design_bytes_ms=bound(design, 0)[0])
+    rows = {
+        "merge_run_positions": dict(
+            max_abs_err=merge["max_abs_err"], ms=merge["ms"], device_ms=merge["device_ms"],
+            plain_ms=merge["plain_ms"], bound_ms=b, bound_by=by, library_ms=None,
+            per=f"one compaction of {len(starts)} runs, {n_rows} rows",
+        ),
+    }
+    batched = hist["batched"]
+    n_cols, n = len(hist["columns"]), hist["rows"]
+    b, by = bound(4 * n_cols * n + 4 * sum(hist["n_bins"]), 3 * n_cols * n)
+    rows["ecdf_hist"] = dict(
+        max_abs_err=batched["max_abs_err"], ms=batched["ms"], device_ms=batched["device_ms"],
+        plain_ms=batched["plain_ms"], bound_ms=b, bound_by=by, library_ms=batched["library_ms"],
+        empty_launch_ms=hist["empty_launch"]["ms"], empty_launch_device_ms=hist["empty_launch"]["device_ms"],
+        per=f"one write batch: {n_cols} columns of {n} rows, one launch",
     )
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return report
+    return rows, detail
 
 
 def group_phase(eng, cf_name, batch, dev) -> tuple[dict, dict]:
@@ -1226,7 +1220,7 @@ def run(args, dev) -> None:
     ]
 
     # 2. kernels against their plain versions
-    report = phases.run("kernels", kernel_phase, key_cols, value_cols, writes, dev)
+    report, write_kernels = phases.run("kernels", kernel_phase, key_cols, value_cols, writes, dev)
 
     # -- the main path: every launch count starts at 0 here ----------------------
     for fn in K.KERNELS.values():
@@ -1357,6 +1351,9 @@ def run(args, dev) -> None:
     launches = {name: fn.launches for name, fn in K.KERNELS.items()}
     for name in ORDERS_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on the main path")
+    # one compaction a replica; one histogram launch a write for all key columns
+    check(launches["merge_run_positions"] == 3, f"merge_run_positions launched {launches['merge_run_positions']} times, not 3")
+    check(launches["ecdf_hist"] == len(writes), f"ecdf_hist launched {launches['ecdf_hist']} times, not {len(writes)}")
     for name in ROW_SLAB_KERNELS:
         launches[name] = row_slab_info["launches"][name]
     stats = eng.stats
@@ -1407,6 +1404,7 @@ def run(args, dev) -> None:
         orders_v_batch_ms=[b["wall_ms"] for b in views["batches"]], **views,
         small_tile=small_tile, where_time=where,
     )}))
+    print(json.dumps({"write_kernels": dict(card=card, **write_kernels)}))
     print(json.dumps({"row_slab": dict(card=card, **row_slab_info)}))
     print(json.dumps({"batched_read": dict(card=card, **trajectory)}))
     print(card)

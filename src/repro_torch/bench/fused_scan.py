@@ -95,40 +95,60 @@ def events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, names: tuple[str, ...], between=None) -> float:
-    """Mean device time per call of ``fn``, which launches one kernel of
-    each of ``names`` (substrings of kernel names): the sum over the names
-    of the mean duration of that kernel's launches under
-    ``torch.profiler``, over ``reps`` calls after one warm-up;
-    ``between()`` runs before each. Unlike CUDA events around the calls
-    it leaves out the host's time between launches, which exceeds a short
-    kernel's own. It averages the launches the profiler recorded: in a
-    process that has run many profiler sessions, a session may miss some
-    of its launches, and dividing by ``reps`` would then undercount. A
-    session that recorded no launch of a name (this happened once on an
-    H100, for a 3 us kernel, in the middle of ``chip_smoke.py``) is run
-    again, up to ``_SESSIONS`` sessions; then it raises."""
+def device_ms(fn, reps: int, names: tuple[str, ...] | None = None, between=None, *, parts: bool = False):
+    """Mean device time per call of ``fn`` under ``torch.profiler``, over
+    ``reps`` calls after one warm-up; ``between()`` runs before each.
+    Unlike CUDA events around the calls it leaves out the host's time
+    between launches, which exceeds a short kernel's own.
+
+    ``names`` (substrings of kernel names) are the kernels ``fn`` launches
+    once each per call. ``None`` means every device operation the call
+    puts on the card, kernels and memsets but no copies, by full name:
+    those that a profiled warm-up call records, and any a later session
+    adds (so ``between`` must put none there). Each name counts as its
+    mean duration times its launches per call (the launches recorded
+    over ``reps``, rounded, at least one). The mean is over the launches
+    the profiler recorded: in a process that has run many profiler
+    sessions, a session may miss some of its launches, and dividing by
+    ``reps`` would then undercount. A session that recorded no launch of
+    an expected name (this happened once on an H100, for a 3 us kernel,
+    in the middle of ``chip_smoke.py``) is run again, up to ``_SESSIONS``
+    sessions; then it raises. Returns the sum over the names, or with
+    ``parts`` a dict of each name's share."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(_SESSIONS):
+    def session(calls: int) -> dict[str, list[float]]:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 if between is not None:
                     between()
                 fn()
             torch.cuda.synchronize()
-        durations = {n: [] for n in names}
+        durations: dict[str, list[float]] = {n: [] for n in names or ()}
         for ev in prof.events():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
+            if ev.device_type != torch.autograd.DeviceType.CUDA or "Memcpy" in ev.name:
                 continue
-            for n in names:
+            took = ev.time_range.end - ev.time_range.start
+            if names is None:
+                durations.setdefault(ev.name, []).append(took)
+            for n in names or ():
                 if n in ev.name:
-                    durations[n].append(ev.time_range.end - ev.time_range.start)
-        if all(durations.values()):
-            return sum(sum(d) / len(d) for d in durations.values()) / 1e3
-    missing = [n for n, d in durations.items() if not d]
+                    durations[n].append(took)
+        return durations
+
+    if names is None:
+        expected = set(session(1))  # the warm-up
+    else:
+        expected = set(names)
+        fn()
+        torch.cuda.synchronize()
+    for _ in range(_SESSIONS):
+        durations = session(reps)
+        expected |= {n for n, d in durations.items() if d}
+        missing = sorted(n for n in expected if not durations.get(n))
+        if not missing:
+            per = {n: sum(d) / len(d) * max(1, round(len(d) / reps)) / 1e3 for n, d in durations.items()}
+            return per if parts else sum(per.values())
     raise RuntimeError(
         f"the profiler recorded no launch of a kernel named like {missing[0]!r} in {_SESSIONS} sessions"
     )

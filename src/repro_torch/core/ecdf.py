@@ -10,9 +10,10 @@ The histogram build is a measurable hot loop at corpus scale, so it has a
 hand-written CUDA kernel (``repro_torch.kernels.ecdf_hist``), wired in
 behind ``merge_rows(..., device=<torch device>)`` — the engine passes its
 device for device-resident column families so the Cost Evaluator's ECDF
-refresh on every write runs on the card next to the data it describes.
-This module is the numpy reference (bit-equal: the kernel's counts are
-exact integers) and the serving API.
+refresh on every write runs on the card next to the data it describes:
+every key column of a write batch in one launch, with one upload and one
+readback. This module is the numpy reference (bit-equal: the kernel's
+counts are exact integers) and the serving API.
 """
 
 from __future__ import annotations
@@ -137,6 +138,15 @@ class ColumnStats:
     _DEVICE_MAX_DOMAIN = 1 << 31
     _DEVICE_MAX_ROWS = 1 << 24
 
+    def device_ok(self, values: np.ndarray) -> bool:
+        """Whether the kernel takes this column's update: within the row
+        guard, the bin budget and the int32 lanes."""
+        return (
+            0 < np.size(values) < self._DEVICE_MAX_ROWS
+            and self.n_bins <= self._DEVICE_MAX_BINS
+            and self.domain <= self._DEVICE_MAX_DOMAIN
+        )
+
     def merge_values(self, values: np.ndarray, *, device=None) -> None:
         """Streaming update on writes (engine Write Scheduler).
 
@@ -147,26 +157,15 @@ class ColumnStats:
         column's domain exceeds the kernel's int32 lanes or bin budget,
         or the batch exceeds the row guard."""
         values = np.asarray(values, dtype=np.int64)
-        if (
-            device is not None
-            and 0 < values.size < self._DEVICE_MAX_ROWS
-            and self.n_bins <= self._DEVICE_MAX_BINS
-            and self.domain <= self._DEVICE_MAX_DOMAIN
-        ):
-            import torch
-
-            from ..kernels.ecdf_hist import ecdf_hist
-
-            col = torch.from_numpy(values.astype(np.int32)).to(device)
-            add = (
-                ecdf_hist(col, n_bins=self.n_bins, bin_width=self.bin_width)
-                .cpu()
-                .numpy()
-                .astype(np.float64)
-            )
+        if device is not None and self.device_ok(values):
+            add = _device_counts([self], [values], device)[0]
         else:
             idx = values // self.bin_width
             add = np.bincount(idx, minlength=self.n_bins).astype(np.float64)
+        self.fold(add)
+
+    def fold(self, add: np.ndarray) -> None:
+        """Add per-bin counts ``add`` (float64[n_bins]) to the histogram."""
         self.counts = self.counts + add
         self.total = float(self.total + add.sum())
         if hasattr(self, "_cum_cache"):
@@ -213,12 +212,25 @@ class TableStats:
         self, key_cols: Mapping[str, np.ndarray], *, device=None
     ) -> None:
         """Fold a write batch into the stats; a ``device`` routes the
-        per-column histogram updates through the ``ecdf_hist`` kernel
-        (the engine's choice for device-resident column families)."""
+        histogram updates of every column the kernel takes
+        (``ColumnStats.device_ok``) through one ``ecdf_hist_many`` launch,
+        with one pinned upload and one readback (the engine's choice for
+        device-resident column families); the other columns keep the
+        numpy path."""
         n = len(next(iter(key_cols.values()))) if key_cols else 0
         self.n_rows += n
+        on_card = []
+        if device is not None:
+            on_card = [name for name, v in key_cols.items() if self.columns[name].device_ok(v)]
+        if on_card:
+            adds = _device_counts(
+                [self.columns[c] for c in on_card], [key_cols[c] for c in on_card], device
+            )
+            for name, add in zip(on_card, adds):
+                self.columns[name].fold(add)
         for name, v in key_cols.items():
-            self.columns[name].merge_values(v, device=device)
+            if name not in on_card:
+                self.columns[name].merge_values(v)
 
     def merged_with(self, other: "TableStats") -> "TableStats":
         """Union of two disjoint row sets' stats (partition merge):
@@ -233,3 +245,24 @@ class TableStats:
                 for name, cs in self.columns.items()
             },
         )
+
+
+def _device_counts(stats: list[ColumnStats], values: list[np.ndarray], device) -> list[np.ndarray]:
+    """Each column's per-bin counts, float64[n_bins], from one
+    ``ecdf_hist_many`` launch on ``device``: the columns (of one length)
+    go up as one int32 block, pinned on a CUDA device so the copy does
+    not wait for the stream, and the counts come back in one readback."""
+    import torch
+
+    from ..kernels.ecdf_hist import ecdf_hist_many
+
+    device = torch.device(device)
+    host = torch.empty((len(values), len(values[0])), dtype=torch.int32, pin_memory=device.type == "cuda")
+    block = host.numpy()
+    for i, v in enumerate(values):
+        block[i] = v
+    flat = ecdf_hist_many(
+        host.to(device, non_blocking=True),
+        n_bins=[cs.n_bins for cs in stats], bin_widths=[cs.bin_width for cs in stats],
+    ).cpu().numpy().astype(np.float64)
+    return np.split(flat, np.cumsum([cs.n_bins for cs in stats])[:-1])

@@ -33,7 +33,13 @@ from repro_torch.kernels.block_agg import (
     scan_tile,
     scan_tile_plain,
 )
-from repro_torch.kernels.ecdf_hist import ecdf_hist, ecdf_hist_plain
+from repro_torch.kernels.ecdf_hist import (
+    SINGLE_CTA_ROWS,
+    ecdf_hist,
+    ecdf_hist_many,
+    ecdf_hist_many_plain,
+    ecdf_hist_plain,
+)
 from repro_torch.kernels.merge_runs import merge_run_positions, merge_run_positions_plain
 from repro_torch.kernels.scan_agg import (
     scan_agg_qgrid,
@@ -158,6 +164,106 @@ def test_merge_and_hist_match_plain(cuda_device):
             ecdf_hist(col, n_bins=n_bins, bin_width=width),
             ecdf_hist_plain(col, n_bins=n_bins, bin_width=width),
         )
+
+
+def _sorted_lanes_on(device, n, domains, seed, offset=0):
+    """int32[len(domains), n] on ``device``: random key tuples (lane l
+    uniform over [offset, offset + domains[l])) sorted lexicographically
+    by chained stable sorts."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    k = torch.stack([torch.randint(offset, offset + d, (n,), device=device, generator=g) for d in domains])
+    order = torch.arange(n, device=device)
+    for lane in reversed(range(len(domains))):
+        order = order[torch.sort(k[lane, order], stable=True).indices]
+    return k[:, order].to(torch.int32)
+
+
+# run stacks at SF-5-like base sizes: (run lengths, per-run key domains
+# and offset); every case holds keys equal across runs
+LANES16 = (3, 4, 2, 5, 3, 2, 4, 3, 2, 3, 5, 2, 3, 4, 2, 7)
+
+
+def _merge_case(name, device):
+    rng = np.random.default_rng(30)
+    if name == "64_runs_16_lanes":
+        lens = [2_000_000] + [int(rng.integers(1, 40_000)) for _ in range(63)]
+        runs = [_sorted_lanes_on(device, m, LANES16, i) for i, m in enumerate(lens)]
+    elif name == "equal_keys":
+        # eight distinct tuples: every insertion point is one of a few rows
+        lens = [2_000_000] + [20_000] * 8
+        runs = [_sorted_lanes_on(device, m, (2, 2, 2), i) for i, m in enumerate(lens)]
+    elif name == "empty_runs_and_a_larger_appended_run":
+        lens = [300_000, 0, 2_100_000, 0, 5_000, 2_100_000, 0]
+        runs = [_sorted_lanes_on(device, m, (50, 60, 70), i) for i, m in enumerate(lens)]
+    elif name == "insertion_at_runs_ends":
+        # appended keys above every base key; an earlier run above a later one
+        lens = [2_000_000, 20_000, 20_000, 7_000]
+        offsets = [0, 1000, 0, 500]
+        runs = [_sorted_lanes_on(device, m, (100, 100), i, off) for i, (m, off) in enumerate(zip(lens, offsets))]
+    elif name == "60_bit_pairs":
+        lens = [2_000_000] + [20_000] * 8
+        runs = []
+        for i, m in enumerate(lens):
+            hi = _sorted_lanes_on(device, m, (1 << 20, 1 << 30, 4), i)  # (high bits, low bits, narrow)
+            runs.append(hi)
+    else:
+        raise KeyError(name)
+    keys = torch.cat(runs, dim=1).contiguous()
+    starts = tuple(int(s) for s in np.cumsum([0] + lens[:-1]))
+    return keys, starts, sum(lens), keys.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case",
+    ["64_runs_16_lanes", "equal_keys", "empty_runs_and_a_larger_appended_run", "insertion_at_runs_ends", "60_bit_pairs"],
+)
+def test_merge_ranks_match_plain_at_sf5_sizes(cuda_device, case):
+    keys, starts, n, lanes = _merge_case(case, cuda_device)
+    launches = K.KERNELS["merge_run_positions"].launches
+    got = merge_run_positions(keys, starts, n, n_lanes=lanes)
+    assert K.KERNELS["merge_run_positions"].launches == launches + 1
+    want = merge_run_positions_plain(keys, starts, n, n_lanes=lanes)
+    assert torch.equal(got, want)
+    assert torch.equal(merge_run_positions(keys, starts, n, n_lanes=lanes), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [20_000, SINGLE_CTA_ROWS, SINGLE_CTA_ROWS + 5, 1_000_003])
+def test_ecdf_hist_many_matches_plain_on_both_paths(cuda_device, n):
+    """One CTA a column up to SINGLE_CTA_ROWS rows, several above (merged
+    in the launch, scratch left zeroed: a second call gives the same);
+    4096 bins, a width per column, negatives and rows past the last bin."""
+    specs = [(4096, 256), (2406, 1), (4096, 2), (17, 3)]
+    rng = np.random.default_rng(n)
+    cols = np.stack([rng.integers(-9, nb * bw + 5 * bw, n) for nb, bw in specs]).astype(np.int32)
+    cols[:, ::11] = -1
+    t = torch.from_numpy(cols).to(cuda_device)
+    n_bins, widths = [s[0] for s in specs], [s[1] for s in specs]
+    launches = K.KERNELS["ecdf_hist"].launches
+    got = ecdf_hist_many(t, n_bins=n_bins, bin_widths=widths)
+    assert K.KERNELS["ecdf_hist"].launches == launches + 1
+    assert torch.equal(got, ecdf_hist_many_plain(t, n_bins=n_bins, bin_widths=widths))
+    assert torch.equal(ecdf_hist_many(t, n_bins=n_bins, bin_widths=widths), got)
+    at = 0
+    for i, (nb, bw) in enumerate(specs):
+        one = ecdf_hist(t[i].contiguous(), n_bins=nb, bin_width=bw)
+        assert torch.equal(one, got[at : at + nb])
+        valid = cols[i][cols[i] >= 0] // bw
+        want = np.bincount(valid[valid < nb], minlength=nb).astype(np.float32)
+        np.testing.assert_array_equal(one.cpu().numpy(), want)
+        at += nb
+
+
+@pytest.mark.cuda
+def test_ecdf_hist_many_splits_more_columns_than_a_launch_holds(cuda_device):
+    rng = np.random.default_rng(40)
+    cols = torch.from_numpy(rng.integers(-2, 300, (70, 5000)).astype(np.int32)).to(cuda_device)
+    n_bins, widths = [64 + i for i in range(70)], [1 + i % 5 for i in range(70)]
+    launches = K.KERNELS["ecdf_hist"].launches
+    got = ecdf_hist_many(cols, n_bins=n_bins, bin_widths=widths)
+    assert K.KERNELS["ecdf_hist"].launches == launches + 2
+    assert torch.equal(got, ecdf_hist_many_plain(cols, n_bins=n_bins, bin_widths=widths))
 
 
 @pytest.mark.cuda
