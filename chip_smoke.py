@@ -43,9 +43,16 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 on the packed key, the two timed in turns (kernel,
                 library, library, kernel) by CUDA events and under
                 torch.profiler (bench.select_slab.slab_locate_turns); the
-                k-ary search's dependent rounds, one dependent load's
-                latency (bench.select_slab.load_latency_ns) and the
-                latency bound they give go into the row_slab line
+                two scans by events and under torch.profiler pass by pass,
+                beside the same launch with every slab empty, their bound
+                over the int32 rate and the queries-outer scan's bytes by
+                design (bench.row_slab); the k-ary search's dependent
+                rounds, one dependent load's latency
+                (bench.select_slab.load_latency_ns) and the latency bound
+                they give go into the row_slab line. Then both scans on the
+                edge cases of their decomposition (bench.row_slab.edge_check:
+                equal to plain, run to run, and bit for bit to the
+                decomposition written out in PyTorch)
   6. batched_read  repro_torch.bench.batched_read.run_device on one
                 replica of the SF 5 rows, batch sizes 16, 64 and 256: the
                 numpy, qgrid, rowgrid, rowgrid-over-device-slabs and fused
@@ -691,48 +698,28 @@ def row_slab_phase(eng, cf_name, batch, oracle, dev) -> dict:
     return dict(queries=len(batch), sums=len(sums), answers_checked=len(batch) * len(walls), walls=walls)
 
 
-def union_rows(slabs: np.ndarray) -> int:
-    """Rows covered by the union of the ``[lo, hi)`` slabs."""
-    total, end = 0, -1
-    for lo, hi in sorted((int(a), int(b)) for a, b in slabs if b > a):
-        if hi > end:
-            total += hi - max(lo, end)
-            end = hi
-    return total
-
-
-def slab_scan_work(slabs, sel, lanes) -> tuple[float, float]:
-    """Bytes and operations a row-slab scan needs on these inputs: the key
-    lanes of every row some slab covers, each value row over the rows its
-    queries' slabs cover, the operands and the output once; the predicate
-    and the sum for every (query, row) pair inside a slab."""
-    q = len(sel)
-    key_bytes = 4 * lanes * union_rows(slabs)
-    val_bytes = sum(4 * union_rows(slabs[sel == v]) for v in np.unique(sel))
-    pairs = float(np.clip(slabs[:, 1] - slabs[:, 0], 0, None).sum())
-    return key_bytes + val_bytes + q * (8 * lanes + 12) + 8 * q, pairs * (2 * lanes + 4)
-
-
 def row_slab_kernel_phase(eng, cf_name, batch, dev) -> tuple[dict, list, dict]:
     """The three row-slab kernels on each replica's launches of the
     row_slab phase, against their plain versions on the same CUDA tensors,
     timed beside their bounds (sums over the three replicas' launches) and,
     for slab_locate, ``torch.searchsorted`` on the packed key
-    (``bench.select_slab.slab_locate_turns``). Returns the kernels' rows;
-    per replica, the key bytes the queries-outer grid reads by design; and
-    slab_locate's dependent rounds per replica, the latency of one
+    (``bench.select_slab.slab_locate_turns``). The two scans are measured
+    by ``bench.row_slab``: by events and under the profiler, pass by pass,
+    beside the same launch with every slab empty, their bound over the
+    int32 rate too. Returns the kernels' rows; per replica, the bytes the
+    queries-outer scan reads by design (each query its own slab's rows);
+    and slab_locate's dependent rounds per replica, the latency of one
     dependent load (``bench.select_slab.load_latency_ns``) and the latency
     bound they give."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.scan_agg import (
-        scan_agg_qgrid, scan_agg_qgrid_plain, scan_agg_rowstream, scan_agg_rowstream_plain,
-    )
+    from repro_torch.kernels.scan_agg import scan_agg_qgrid_plain, scan_agg_rowstream_plain
+    from repro_torch.bench.row_slab import int_bound_ms, qgrid_case, qgrid_design_bytes, rowstream_case, slab_scan_work
     from repro_torch.bench.select_slab import LATENCY_BUFFERS, load_latency_ns, slab_locate_turns
 
     cf = eng.column_families[cf_name]
     sum_idx = [i for i, q in enumerate(batch) if q.agg == "sum"]
     rows = {name: [] for name in ROW_SLAB_KERNELS}
-    by_design = []  # the queries-outer grid's key traffic, re-read per query
+    by_design = []  # the queries-outer scan's traffic, each query its slab's rows
     rounds = []  # slab_locate's dependent rounds, and a binary search's
     for r in cf.replicas:
         table = eng._table(cf, r)
@@ -752,53 +739,45 @@ def row_slab_kernel_phase(eng, cf_name, batch, dev) -> tuple[dict, list, dict]:
         rounds.append(dict(replica=r.replica_id, **loc.pop("rounds")))
         rows["slab_locate"].append(dict(replica=r.replica_id, bound_ms=bound(*loc["work"])[0], **loc))
 
-        # rows outer, on the located slabs
+        # rows outer on the located slabs, queries outer on the batch's sums
+        # (one value row): each against plain and run to run
         slabs = got
-        s_args = (keys, tile, d["res_lo"], d["res_hi"], slabs, d["sel"])
+        try:
+            rs, ks = uncounted(rowstream_case, st, d, slabs)
+            qg, kq = uncounted(qgrid_case, st, d, slabs, sum_idx)
+        except AssertionError as e:
+            fail(f"{e} ({what})")
+        check(torch.equal(kq[:, 1], ks[sum_idx, 1]), f"scan_agg_qgrid ({what}): counts differ from rows outer")
 
-        def rs(a=s_args, cp=cp, n_vals=n_vals):
-            return scan_agg_rowstream(*a, col_parts=cp, n_vals=n_vals)
+        def rs_plain(a=(keys, tile[:n_vals], d["res_lo"], d["res_hi"], slabs, d["sel"]), cp=cp):
+            return scan_agg_rowstream_plain(*a, col_parts=cp)
 
-        def rs_plain(a=s_args, cp=cp, n_vals=n_vals):
-            return scan_agg_rowstream_plain(a[0], a[1][:n_vals], *a[2:], col_parts=cp)
-
-        ks, kp = uncounted(rs), rs_plain()
-        check(torch.equal(ks[:, 1], kp[:, 1]), f"scan_agg_rowstream ({what}): counts differ from plain")
-        check(bool(torch.allclose(ks[:, 0], kp[:, 0], rtol=RTOL, atol=ATOL)), f"scan_agg_rowstream ({what}): sums differ from plain")
-        check(torch.equal(ks, uncounted(rs)), f"scan_agg_rowstream ({what}): not deterministic")
-        sel_np = d["sel"].cpu().numpy()
-        work = slab_scan_work(host, sel_np, lanes)
-        rows["scan_agg_rowstream"].append(dict(
-            replica=r.replica_id, queries=len(batch), max_abs_err=max_abs_diff(ks[:, 0], kp[:, 0]),
-            ms=uncounted(time_ms, rs, 10), plain_ms=time_ms(rs_plain, 2), bound_ms=bound(*work)[0],
-            library_ms=None, work=work,
-        ))
-
-        # queries outer, on the batch's sums (one value row)
         idx = torch.tensor(sum_idx, device=dev)
-        row = tile[int(sel_np[sum_idx[0]])]
-        g_args = (keys, row, d["res_lo"][idx].contiguous(), d["res_hi"][idx].contiguous(), slabs[idx].contiguous())
-
-        def qg(a=g_args):
-            return scan_agg_qgrid(*a)
+        g_args = (
+            keys, tile[int(d["sel"][sum_idx[0]])], *(x[idx].contiguous() for x in (d["res_lo"], d["res_hi"], slabs))
+        )
 
         def qg_plain(a=g_args):
             return scan_agg_qgrid_plain(*a)
 
-        kq, kqp = uncounted(qg), qg_plain()
-        check(torch.equal(kq[:, 1], kqp[:, 1]), f"scan_agg_qgrid ({what}): counts differ from plain")
-        check(bool(torch.allclose(kq[:, 0], kqp[:, 0], rtol=RTOL, atol=ATOL)), f"scan_agg_qgrid ({what}): sums differ from plain")
-        check(torch.equal(kq[:, 1], ks[idx, 1]), f"scan_agg_qgrid ({what}): counts differ from rows outer")
-        work = slab_scan_work(host[sum_idx], sel_np[sum_idx], lanes)
-        design = len(sum_idx) * keys.shape[1] * (lanes + 1) * 4
+        sel_np = d["sel"].cpu().numpy()
+        for name, m, plain, sel_idx in (
+            ("scan_agg_rowstream", rs, rs_plain, slice(None)), ("scan_agg_qgrid", qg, qg_plain, sum_idx)
+        ):
+            work = slab_scan_work(host[sel_idx], sel_np[sel_idx], lanes)
+            rows[name].append(dict(
+                replica=r.replica_id, queries=m["queries"], max_abs_err=m["max_abs_err"], ms=m["ms"],
+                device_ms=m["device_ms"], device_parts_ms=m["device_parts_ms"], floor_ms=m["floor"]["ms"],
+                floor_device_ms=m["floor"]["device_ms"], plain_ms=time_ms(plain, 2), bound_ms=bound(*work)[0],
+                int_bound_ms=int_bound_ms(work[1]), library_ms=None, work=work,
+            ))
+        design = qgrid_design_bytes(host[sum_idx], lanes)
         by_design.append(dict(replica=r.replica_id, bytes=design, bytes_ms=bound(design, 0)[0]))
-        rows["scan_agg_qgrid"].append(dict(
-            replica=r.replica_id, queries=len(sum_idx), max_abs_err=max_abs_diff(kq[:, 0], kqp[:, 0]),
-            ms=uncounted(time_ms, qg, 3), plain_ms=time_ms(qg_plain, 2), bound_ms=bound(*work)[0],
-            library_ms=None, work=work,
-        ))
+        rows["scan_agg_qgrid"][-1].update(design_bytes=design, design_bytes_ms=bound(design, 0)[0])
 
     report = {}
+    summed = ("device_ms", "library_device_ms", "floor_ms", "floor_device_ms", "int_bound_ms", "design_bytes",
+              "design_bytes_ms")
     for name, per in rows.items():
         b, by = bound(sum(x["work"][0] for x in per), sum(x["work"][1] for x in per))
         lib = [x["library_ms"] for x in per]
@@ -806,10 +785,14 @@ def row_slab_kernel_phase(eng, cf_name, batch, dev) -> tuple[dict, list, dict]:
             max_abs_err=max(x["max_abs_err"] for x in per), ms=sum(x["ms"] for x in per),
             plain_ms=sum(x["plain_ms"] for x in per), bound_ms=b, bound_by=by,
             library_ms=None if None in lib else sum(lib),
-            **{k: sum(x[k] for x in per) for k in ("device_ms", "library_device_ms") if k in per[0]},
+            **{k: sum(x[k] for x in per) for k in summed if k in per[0]},
             per=f"batch of {per[0]['queries']} on each of {len(per)} replicas ({len(per)} launches)",
             groups=[{k: v for k, v in x.items() if k != "work"} for x in per],
         )
+        if "device_parts_ms" in per[0]:
+            report[name]["device_parts_ms"] = {
+                k: sum(x["device_parts_ms"].get(k, 0.0) for x in per) for k in per[0]["device_parts_ms"]
+            }
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     # slab_locate's latency bound: its dependent rounds times one dependent
@@ -1272,6 +1255,8 @@ def run(args, dev) -> None:
     print(f"read_many batch ms (host clock): {[round(x, 3) for x in batch_ms]}", flush=True)
 
     # 5. the row-slab read path while every replica holds one sorted run
+    from repro_torch.bench.row_slab import edge_check
+
     slab_batch = row_slab_batch(read_batches(n_rows, args.seed + 4)[0])
 
     def row_slab():
@@ -1279,10 +1264,16 @@ def run(args, dev) -> None:
         for name in ROW_SLAB_KERNELS:
             check(launches[name] > 0, f"kernel {name} was not launched on the row-slab path")
         info["launches"] = launches
-        rows, info["qgrid_key_bytes_by_design"], info["slab_locate"] = row_slab_kernel_phase(
+        rows, info["qgrid_design_bytes"], info["slab_locate"] = row_slab_kernel_phase(
             eng, "orders", slab_batch, dev
         )
         report.update(rows)
+        # both scans bit for bit against their decomposition written out, on
+        # the edge cases of that decomposition
+        try:
+            info["edge_cases"] = uncounted(edge_check, dev)
+        except AssertionError as e:
+            fail(str(e))
         return info
 
     row_slab_info = phases.run("row_slab", row_slab)

@@ -569,7 +569,7 @@ def table_scan_device_many(
     else:
         out = scan_agg_rowstream(
             state["keys"], state["values_tile"], t_lo, t_hi, t_slabs, t_sel,
-            col_parts=col_parts, n_vals=state["n_value_rows"],
+            col_parts=col_parts, n_vals=state["n_value_rows"], ones_row=state["ones_row"],
         )
     out = out.cpu().numpy()
     return [

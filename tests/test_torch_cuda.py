@@ -20,6 +20,7 @@ import torch
 
 import repro_torch.core as T
 import repro_torch.kernels as K
+from repro_torch.bench.row_slab import EDGE_CASES, edge_check
 from repro_torch.core.storage.memtable import sort_run
 from repro_torch.core.tpch import generate_orders, orders_schema
 from repro_torch.core.storage.views import query_view_eligible, verify_views
@@ -524,6 +525,22 @@ def test_row_slab_path_on_the_card_matches_the_cpu(cuda_device):
     with pytest.raises(ValueError, match="single sorted run"):
         ops.table_scan_device_many(t, qs)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_row_slab_kernels_equal_their_emulation_on_edge_cases(cuda_device, name):
+    """Both row-slab kernels on an edge case of their decomposition
+    (``bench.row_slab.edge_cases``: empty slabs, slabs inside a unit, at
+    the table's end, one query, more than a chunk, wide pairs, selectors
+    outside the value rows, tiles no slab meets): counts equal to plain,
+    sums within tolerance, run to run identical, and bit for bit equal to
+    the decomposition written out in PyTorch (``scan_agg_*_emulated``)."""
+    before = (K.KERNELS["scan_agg_rowstream"].launches, K.KERNELS["scan_agg_qgrid"].launches)
+    out = edge_check(cuda_device, names=(name,))
+    assert set(out) == {name}
+    assert K.KERNELS["scan_agg_rowstream"].launches == before[0] + 2
+    assert K.KERNELS["scan_agg_qgrid"].launches == before[1] + (0 if name == "wide" else 2)
 
 # -- the redesigned fused scan and view block sums ----------------------------------------
 
