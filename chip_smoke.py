@@ -7,8 +7,10 @@ replication factor 3): CREATE a device-resident HR column family, serve
 ``read_many`` and ``read`` batches, write through commit log, memtable,
 flush and append, and compact the run stack on the device; then the same
 on a second column family with materialized per-slab views, whose
-eligible sums and counts are served from per-block partials. It holds
-every kernel of both paths against its plain PyTorch version on the same
+eligible sums and counts are served from per-block partials; and the
+same rows partitioned over a token ring (four partitions of three
+replicas), read by scatter-gather and written by routed writes. It holds
+every kernel of these paths against its plain PyTorch version on the same
 CUDA tensors, at the paths' shapes, and times both.
 
 Phases, each asserting (a failure exits non-zero and prints no result):
@@ -64,7 +66,28 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 compaction a replica), ecdf_hist 10 (one a write);
                 on the appended run stacks slab_many launches nothing and
                 table_scan_device_many raises
-  8. groups     one fresh read_many batch of 256; then the fused scan and
+  8. partitions  "orders_p": the same SF 5 rows at partitions=4,
+                partition_balance="tokens", RF 3, 6 nodes, device-resident,
+                HR layouts from HRCA over the row-weighted blend of the four
+                partitions' cost models (12 replica tables); two fresh
+                batches of 256, 16 scalar reads, the 10 writes (each
+                partition compacts at the 8th), one more batch. Every answer
+                against the oracle: counts and rows_matched exact, sums
+                within rtol 1e-5 / atol 1e-3, rows_scanned the serving
+                replicas' host slabs, select indices the serving replicas'
+                host scans in ring order and their rows, materialized, equal
+                as a set to the oracle's; the token histogram equal to
+                np.bincount of every committed token after CREATE and after
+                the writes; the path's launches (scan, select compaction,
+                merge rank one a compaction, the histogram once at CREATE and
+                per write once for the token histogram, once per routed
+                partition and once for the column family). The token
+                histogram's launch on the CREATE tokens (7.5 M) and on a
+                write's (20,000) vs plain and np.bincount, by events and on
+                the device, torch.bincount in turns, bound. Then "orders_pv":
+                TPC-H SF 1 at partitions=2 with views=True in orders'
+                layouts, one batch of 256 against its oracle, view hits > 0
+  9. groups     one fresh read_many batch of 256; then the fused scan and
                 the select compaction on each replica group that batch
                 formed (the launches read_many makes), each vs its plain
                 version: counts and indices equal, sums within rtol 1e-5 /
@@ -77,7 +100,7 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 the (query, segment) pairs its skip rule leaves live
                 (select_live_pairs); those pairs and the (query, block)
                 pairs holding a match go into the read_layer line
-  9. views      CREATE "orders_v" on the same rows with views=True (same
+  10. views     CREATE "orders_v" on the same rows with views=True (same
                 layouts, every view verified), the same 4 batches, the
                 wide batch and scalar reads (most sums and counts served
                 by the views), the same 10 writes (the compaction rebuilds
@@ -89,7 +112,7 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 compaction and after the last write; select_compact vs its
                 plain version on the replica groups of the first batch and
                 of the batch after the writes (run stacks)
-  10. view_kernels  block_sums on a full SF 5 tile (whole and a flush's
+  11. view_kernels  block_sums on a full SF 5 tile (whole and a flush's
                 tail) and boundary_block_sums on the pairs one fresh batch
                 forms, each vs its plain version; block_sums also bit for
                 bit vs the contract's in-block order written out in
@@ -97,16 +120,17 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 library yardstick; then the bit identity of view and fused
                 scan, and of block_sums and the card order, on a table
                 whose schema shrinks the staging tile
-  11. breakdown  one fresh batch on each column family: the engine's spans
+  12. breakdown  one fresh batch on orders, orders_v and orders_p: the engine's spans
                 on the host clock, and a second under torch.profiler (the
                 fused scan's scan_partials and scan_fold apart)
 Every kernel wrapper's launch count is set to 0 just before phase 3 and
 read after phase 7, just before phase 5 and after it, just before phase 6
-and after it, and just before phase 9 and after it; phases 5 and 6 count
-apart and their counts are restored after them, so the main path's counts
-hold phases 3, 4 and 7. Each kernel must have launched on its path (the
-row-slab kernels on phase 5's, the view kernels on phase 9's); the row-slab
-line reports phase 6's launches beside phase 5's.
+and after it, just before each of phase 8's two column families and after
+it, and just before phase 10 and after it; phases 5, 6 and 8 count apart
+and their counts are restored after them, so the main path's counts hold
+phases 3, 4 and 7. Each kernel must have launched on its path (the
+row-slab kernels on phase 5's, rows 1-4 on phase 8's, the view kernels on
+phase 10's); the row-slab line reports phase 6's launches beside phase 5's.
 The oracle is a brute-force pass over every generated row on the card
 (plain PyTorch masks and float64 sums); checks that launch kernels
 (verify_views, the fused comparisons, the select checks) leave the
@@ -115,8 +139,13 @@ select checks of both column families before and after the writes.
 
 The standard output ends with the kernels line, the per-phase wall times
 and per-layer numbers, the views line, the write-kernels line (phase 2's
-measurements in full), the row-slab line, the batched-read line, the
-card's name and power limit, and ``{"ok": true, "device": ...}``.
+measurements in full), the row-slab line, the partitions line (CREATE
+and HRCA walls, the ring, partition imbalance and rows per partition,
+empty-partition skips, batch, write and per-flush walls, launches per
+kernel, the token histogram's launch times; ``orders_pv``'s), the
+batched-read line, the card's name and power limit, and
+``{"ok": true, "device": ...}``. The kernels line's ``ecdf_hist`` row
+carries the token histogram's launches under ``token_hist``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``--sf`` and ``--seed`` change the scale factor and the data seed).
@@ -125,6 +154,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import pathlib
@@ -287,7 +317,7 @@ class Oracle:
             for c, v in value_cols.items()
         }
 
-    def answer(self, q, schema) -> tuple[int, float]:
+    def mask(self, q, schema) -> torch.Tensor:
         mask = None
         for col, f in q.filters.items():
             lo, hi = f.bounds(schema, col)
@@ -296,6 +326,17 @@ class Oracle:
             mask = m if mask is None else mask & m
         if mask is None:
             mask = torch.ones_like(next(iter(self.keys.values())), dtype=torch.bool)
+        return mask
+
+    def rows(self, q, schema, key_names, value_names) -> np.ndarray:
+        """The rows ``q`` selects as sorted ``(keys…, values…)`` float64
+        rows (values as stored, float32)."""
+        mask = self.mask(q, schema)
+        cols = [self.keys[c][mask].double() for c in key_names] + [self.vals[c][mask] for c in value_names]
+        return sorted_rows(torch.stack(cols, dim=1).cpu().numpy())
+
+    def answer(self, q, schema) -> tuple[int, float]:
+        mask = self.mask(q, schema)
         n_match = int(mask.sum())
         total = float(self.vals[q.value_col][mask].sum()) if q.agg == "sum" else 0.0
         return n_match, total
@@ -328,6 +369,11 @@ def check_answers(eng, cf_name, pairs, oracle, label):
                 res.selected is not None and np.array_equal(res.selected, host),
                 f"{what}: select indices differ from the host scan",
             )
+
+
+def sorted_rows(rows: np.ndarray) -> np.ndarray:
+    """``rows`` (``[m, c]``) in lexicographic order."""
+    return rows[np.lexsort(rows.T[::-1])] if len(rows) else rows
 
 
 def uncounted(fn, *args):
@@ -1145,6 +1191,278 @@ def profile_batch(eng, cf_name, batch) -> dict:
     }
 
 
+# -- phase 8: partitioned column families ---------------------------------------------
+
+
+class GcClock:
+    """Host time the cyclic garbage collector spends inside a ``with``
+    block, by generation, from ``gc.callbacks``."""
+
+    def __enter__(self):
+        self.ms: dict[int, float] = {}
+        gc.callbacks.append(self._tick)
+        return self
+
+    def _tick(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            gen = info["generation"]
+            self.ms[gen] = self.ms.get(gen, 0.0) + (time.perf_counter() - self._t0) * 1e3
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._tick)
+
+
+class ServedBy:
+    """Which replica served each query of an engine's last read, per
+    partition: wraps the engine's ``_execute_group`` (the call every
+    (partition, replica) group of ``read_many`` goes through, cache hits
+    included) and records each group's replica and query indices. It
+    only observes. ``read_many`` and ``read`` clear the record first."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.map: dict[int, list] = {}
+        inner = eng._execute_group
+
+        def recording(cf, r, qidx, *args, **kwargs):
+            for qi in qidx:
+                self.map.setdefault(qi, []).append(r)
+            return inner(cf, r, qidx, *args, **kwargs)
+
+        eng._execute_group = recording
+
+    def read_many(self, cf_name, batch, **kwargs):
+        self.map = {}
+        return self.eng.read_many(cf_name, batch, **kwargs)
+
+    def read(self, cf_name, q):
+        self.map = {}
+        return self.eng.read(cf_name, q)
+
+
+def check_partitioned(eng, cf_name, pairs, served, oracle, label):
+    """Each (query, (ScanResult, ReadReport)) of a partitioned read against
+    the oracle over every row the column family holds: rows_matched and
+    counts exact, sums within tolerance; rows_scanned the sum of the
+    serving replicas' host slabs; select indices equal to the serving
+    replicas' host scans offset into the ring-order index space, and the
+    rows they name, materialized as ``(keys…, values…)``, equal as a set
+    to the rows the oracle selects. ``served`` maps a query's index to
+    its serving replicas (``ServedBy.map``)."""
+    cf = eng.column_families[cf_name]
+    offsets = eng._partition_row_offsets(cf)
+    for i, (q, (res, rep)) in enumerate(pairs):
+        what = f"{label} query {i} ({q.agg}, {q.filters})"
+        n_match, want = oracle.answer(q, cf.schema)
+        check(res.rows_matched == n_match, f"{what}: rows_matched {res.rows_matched} != {n_match}")
+        reps = sorted(served.get(i, []), key=lambda r: r.partition_id)
+        check(len({r.partition_id for r in reps}) == len(reps), f"{what}: a partition served twice")
+        if not reps:
+            check(rep.replica_id == -1 and res.rows_scanned == 0, f"{what}: no partition served it")
+        slabs = [(r, eng._table(cf, r).slab(q)) for r in reps]
+        scanned = sum(hi - lo for _, (lo, hi) in slabs)
+        check(res.rows_scanned == scanned, f"{what}: rows_scanned {res.rows_scanned} != {scanned}")
+        if q.agg == "count":
+            check(res.value == n_match, f"{what}: count {res.value} != {n_match}")
+        elif q.agg == "sum":
+            check(math.isclose(res.value, want, rel_tol=RTOL, abs_tol=ATOL), f"{what}: sum {res.value} != {want}")
+        else:
+            host = [
+                eng._table(cf, r)._scan_slab(q, lo, hi).selected + offsets[r.partition_id]
+                for r, (lo, hi) in slabs
+            ]
+            host = np.concatenate(host) if host else np.empty(0, np.int64)
+            check(
+                res.selected is not None and np.array_equal(res.selected, host),
+                f"{what}: select indices differ from the serving replicas' host scans",
+            )
+            got = []
+            for r, _ in slabs:
+                t = eng._table(cf, r)
+                local = res.selected[(res.selected >= offsets[r.partition_id]) & (res.selected < offsets[r.partition_id] + len(t))]
+                local = local - offsets[r.partition_id]
+                got.append(np.stack(
+                    [t.key_cols[c][local].astype(np.float64) for c in cf.key_names]
+                    + [np.asarray(t.value_cols[c])[local].astype(np.float32).astype(np.float64) for c in cf.value_names],
+                    axis=1,
+                ))
+            got = sorted_rows(np.concatenate(got)) if got else np.empty((0, len(cf.key_names) + len(cf.value_names)))
+            check(
+                np.array_equal(got, oracle.rows(q, cf.schema, cf.key_names, cf.value_names)),
+                f"{what}: the selected rows differ from the oracle's",
+            )
+
+
+def token_hist_row(bins: np.ndarray, n_bins: int, dev) -> dict:
+    """The token histogram's launch on ``bins`` (``bench.write_kernels.
+    token_hist_case``), its launches left out of the path's counts, with
+    its bound: each bin read once and each count written once, three
+    operations a token."""
+    from repro_torch.bench.write_kernels import token_hist_case
+
+    try:
+        row = uncounted(token_hist_case, bins, n_bins, dev)
+    except AssertionError as e:
+        fail(str(e))
+    row["bound_ms"], row["bound_by"] = bound(4 * len(bins) + 4 * n_bins, 3 * len(bins))
+    return row
+
+
+def partitions_phase(key_cols, value_cols, writes, oracles, seed, dev) -> tuple[dict, object]:
+    """``orders_p``: the SF 5 ``orders`` rows at P = 4 with token-quantile
+    boundaries, RF 3, HR layouts from HRCA over the per-partition blend,
+    device-resident; two fresh batches, 16 scalar reads, the 10 writes,
+    one more batch, each answer against the oracle (each batch's engine
+    spans on the host clock, ``StageClock``, and the garbage collector's
+    time in it, ``GcClock``); the token histogram against
+    ``np.bincount`` of every committed token; the launches the path made
+    (its counts from 0, ``own_counts``). Returns the path's numbers and
+    its engine."""
+    import repro_torch.core as T
+    import repro_torch.kernels as K
+
+    n_rows = len(key_cols["custkey"])
+    eng = T.HREngine(n_nodes=6, device=dev)
+    served = ServedBy(eng)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cf = eng.create_column_family(
+        "orders_p", key_cols, value_cols, replication_factor=3, mechanism="HR",
+        workload=T.tpch.q1_q2_workload(n_rows=n_rows), schema=T.tpch.orders_schema(),
+        device_resident=True, partitions=4, partition_balance="tokens",
+    )
+    torch.cuda.synchronize()
+    create_ms = (time.perf_counter() - t) * 1e3
+    check(len(cf.partitions) == 4 and len(cf.replicas) == 12, "orders_p is not 4 partitions of RF 3")
+    for r in cf.replicas:
+        check(eng._table(cf, r).device_resident, f"orders_p replica {r.replica_id} is not resident")
+    check(K.KERNELS["ecdf_hist"].launches == 1, "CREATE did not put the token histogram on the kernel")
+    hist = cf.token_hist
+    committed = [cf.ring.tokens(key_cols, cf.schema)]
+
+    def hist_equal(label):
+        want = np.bincount(np.concatenate(committed) >> hist.shift, minlength=hist.n_bins)
+        check(np.array_equal(hist.counts, want), f"{label}: token histogram != np.bincount of the committed tokens")
+
+    hist_equal("orders_p CREATE")
+
+    def batch(b, qs, oracle, label):
+        clock = StageClock()
+        torch.cuda.synchronize()
+        with GcClock() as gc_clock:
+            t = time.perf_counter()
+            out = served.read_many("orders_p", qs, trace=clock)
+            torch.cuda.synchronize()
+            batch_ms.append((time.perf_counter() - t) * 1e3)
+        batch_spans.append(dict(clock.ms, gc_ms_by_generation=gc_clock.ms))
+        check_partitioned(eng, "orders_p", list(zip(qs, out)), served.map, oracle, f"{label} {b}")
+
+    batch_ms: list[float] = []
+    batch_spans: list[dict] = []
+    imbalance = {"token_hist_at_create": hist.imbalance(cf.ring.starts)}
+    fresh = read_batches(n_rows, seed + 6)
+    for b, qs in enumerate(fresh[:2]):
+        batch(b, qs, oracles[0], "orders_p batch")
+    for q in fresh[1][::16]:
+        pair = (q, served.read("orders_p", q))
+        check_partitioned(eng, "orders_p", [pair], served.map, oracles[0], "orders_p scalar")
+
+    write_ms, flush_ms, routed_rows = [], [], np.zeros(4, np.int64)
+    hist_launches = 1
+    for wk, wv in writes:
+        before = (eng.stats["flush_wall_seconds"], eng.stats["memtable_flushes"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.write("orders_p", wk, wv)
+        torch.cuda.synchronize()
+        write_ms.append((time.perf_counter() - t) * 1e3)
+        stats = eng.stats
+        flush_ms.append((stats["flush_wall_seconds"] - before[0]) * 1e3 / max(1, stats["memtable_flushes"] - before[1]))
+        committed.append(cf.ring.tokens(wk, cf.schema))
+        pids = cf.ring.partition_of_tokens(committed[-1])
+        routed_rows += np.bincount(pids, minlength=4)
+        # the token histogram, each routed partition's statistics, the
+        # column family's statistics: one launch each
+        hist_launches += 2 + len(np.unique(pids))
+    hist_equal("orders_p after the writes")
+    imbalance["token_hist_after_writes"] = hist.imbalance(cf.ring.starts)
+    stats = eng.stats
+    check(stats["compactions"] > 0, "no partition of orders_p compacted")
+    check(
+        sum(p.n_rows_committed for p in cf.partitions) == n_rows + len(writes) * WRITE_ROWS,
+        "orders_p's partition logs miss rows",
+    )
+    batch(2, read_batches(n_rows, seed + 7)[0], oracles[2], "orders_p batch after the writes")
+
+    launches = {name: fn.launches for name, fn in K.KERNELS.items()}
+    for name in ORDERS_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the partitioned path")
+    check(launches["ecdf_hist"] == hist_launches, f"ecdf_hist launched {launches['ecdf_hist']} times, not {hist_launches}")
+    check(
+        launches["merge_run_positions"] == stats["compactions"],
+        f"merge_run_positions launched {launches['merge_run_positions']} times for {stats['compactions']} compactions",
+    )
+    token_hist = {
+        "create": token_hist_row(committed[0] >> hist.shift, hist.n_bins, dev),
+        "write": token_hist_row(committed[-1] >> hist.shift, hist.n_bins, dev),
+    }
+    return dict(
+        rows=n_rows, partitions=4, replication_factor=3, partition_balance="tokens",
+        slot_layouts=[list(a) for a in cf.slot_layouts],
+        ring_starts=[int(x) for x in cf.ring.starts],
+        create_ms=create_ms, hrca_ms=cf.hrca_result.wall_seconds * 1e3,
+        partition_imbalance=eng.partition_imbalance("orders_p"), imbalance=imbalance,
+        rows_per_partition=[int(p.n_rows_committed) for p in cf.partitions],
+        written_rows_per_partition=routed_rows.tolist(),
+        empty_partition_skips=stats["empty_partition_skips"],
+        batch_ms=batch_ms, batch_spans_ms=batch_spans, write_ms=write_ms, flush_ms_per_replica_flush=flush_ms,
+        replica_flushes=stats["memtable_flushes"], compactions=stats["compactions"],
+        result_cache_hits=stats["result_cache_hits"],
+        launches={name: n for name, n in launches.items() if n},
+        token_hist=token_hist,
+    ), eng
+
+
+def partitioned_views_phase(layouts, seed, dev) -> dict:
+    """``orders_pv``: TPC-H SF 1 ``orders`` at P = 2 (token-quantile
+    boundaries), RF 3, ``views=True``, device-resident, in the layouts
+    ``orders`` chose (passed as ``layouts=``: no second HRCA); one batch
+    of 256, every answer against the oracle, and view hits. Its launch
+    counts from 0 (``own_counts``)."""
+    import repro_torch.core as T
+
+    kc, vc = T.tpch.generate_orders(1.0, seed=seed + 8)
+    n_rows = len(kc["custkey"])
+    oracle = Oracle(kc, vc, dev)
+    eng = T.HREngine(n_nodes=6, device=dev)
+    served = ServedBy(eng)
+    t = time.perf_counter()
+    eng.create_column_family(
+        "orders_pv", kc, vc, replication_factor=3, layouts=layouts, schema=T.tpch.orders_schema(),
+        device_resident=True, views=True, partitions=2, partition_balance="tokens",
+    )
+    torch.cuda.synchronize()
+    create_ms = (time.perf_counter() - t) * 1e3
+    qs = read_batches(n_rows, seed + 9)[0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = served.read_many("orders_pv", qs)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    check_partitioned(eng, "orders_pv", list(zip(qs, out)), served.map, oracle, "orders_pv batch")
+    stats = eng.stats
+    check(stats["view_hits"] > 0, "orders_pv: no answer was served by a view")
+    return dict(
+        rows=n_rows, partitions=2, layouts="those orders chose, passed as layouts=",
+        create_ms=create_ms, batch_ms=wall, view_hits=stats["view_hits"],
+        view_boundary_rows=stats["view_boundary_rows"],
+        partition_imbalance=eng.partition_imbalance("orders_pv"),
+        empty_partition_skips=stats["empty_partition_skips"],
+    )
+
+
 # -- main path -----------------------------------------------------------------------
 
 
@@ -1353,13 +1671,25 @@ def run(args, dev) -> None:
         "flush_wall_ms_per_replica_flush": stats["flush_wall_seconds"] * 1e3 / stats["memtable_flushes"],
     }
 
-    # 8. the read kernels on the replica groups of one fresh batch
+    # 8. the partitioned path, its launch counts from 0 (orders_p, then orders_pv)
+    def partitions():
+        (info, peng), _ = own_counts(partitions_phase, key_cols, value_cols, writes, oracles, args.seed, dev)
+        pv, pv_launches = own_counts(partitioned_views_phase, eng.layouts("orders"), args.seed, dev)
+        pv["launches"] = {name: n for name, n in pv_launches.items() if n}
+        info["orders_pv"] = pv
+        torch.cuda.empty_cache()
+        return info, peng
+
+    partitions_info, peng = phases.run("partitions", partitions)
+    report["ecdf_hist"]["token_hist"] = partitions_info["token_hist"]
+
+    # 9. the read kernels on the replica groups of one fresh batch
     fresh = read_batches(n_rows, args.seed + 3)[0]
     group_report, read_layer = phases.run("groups", group_phase, eng, "orders", fresh, dev)
     report.update(group_report)
     select_checks["orders_after_writes"] = read_layer.pop("select_groups")
 
-    # 9. the views path: its own launch counts, from 0
+    # 10. the views path: its own launch counts, from 0
     veng, views = phases.run(
         "views", views_phase, eng, key_cols, value_cols, writes, batches, oracles, dev
     )
@@ -1369,16 +1699,17 @@ def run(args, dev) -> None:
     read_layer["select_checks"] = select_checks
     oracles.clear()
 
-    # 10. the view kernels against their plain versions
+    # 11. the view kernels against their plain versions
     report.update(phases.run("view_kernels", view_kernel_phase, veng, read_batches(n_rows, args.seed + 3)[0], dev))
 
-    # 11. where a fresh batch's time goes, on both column families
+    # 12. where a fresh batch's time goes, on both column families
     where = phases.run(
-        "breakdown", breakdown_phase, {"orders": (eng, "orders"), "orders_v": (veng, "orders_v")},
+        "breakdown", breakdown_phase,
+        {"orders": (eng, "orders"), "orders_v": (veng, "orders_v"), "orders_p": (peng, "orders_p")},
         n_rows, args.seed + 5,
     )
 
-    # 12. report
+    # 13. report
     small_tile = report.pop("small_tile")
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1397,6 +1728,7 @@ def run(args, dev) -> None:
     )}))
     print(json.dumps({"write_kernels": dict(card=card, **write_kernels)}))
     print(json.dumps({"row_slab": dict(card=card, **row_slab_info)}))
+    print(json.dumps({"partitions": dict(card=card, **partitions_info)}))
     print(json.dumps({"batched_read": dict(card=card, **trajectory)}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,12 @@ takes its merge-rank and histogram measurements from the functions here.
   empty kernel launched the same way (``empty_launch``), the floor a
   launch of this size cannot go under; the batched call in turns with
   ``torch.bincount`` on each of the three columns.
+* ``token_hist`` (:func:`token_hist_case`): the call a partitioned column
+  family's token histogram makes (``TokenHistogram.add_tokens``):
+  ``ecdf_hist_many`` on one int32 row of ``token >> shift`` at 4096 bins
+  and bin width 1, here on the CREATE rows' tokens, held equal to plain
+  and to ``np.bincount``, in turns with ``torch.bincount`` on the same
+  row.
 
 Each call is timed by CUDA events over many calls (``ms``: the device's
 time with the host's gaps between launches) and under ``torch.profiler``
@@ -38,7 +44,7 @@ import math
 import numpy as np
 import torch
 
-from ..core import SortedTable, TableStats
+from ..core import SortedTable, TableStats, TokenHistogram, pack_columns
 from ..core.storage.memtable import sort_run
 from ..core.tpch import ROWS_PER_SF, generate_orders, orders_schema
 from ..kernels.ecdf_hist import ecdf_hist, ecdf_hist_many, ecdf_hist_many_plain, ecdf_hist_plain, empty_launch
@@ -55,6 +61,7 @@ __all__ = [
     "merge_work",
     "run",
     "run_stack",
+    "token_hist_case",
     "write_batches",
 ]
 
@@ -207,6 +214,34 @@ def hist_case(cols: dict, stats: TableStats, dev, *, reps: int = 50) -> dict:
     return out
 
 
+def token_hist_case(bins: np.ndarray, n_bins: int, dev, *, reps: int = 20) -> dict:
+    """``ecdf_hist_many`` on one int32 row of token bins (``token >>
+    shift``, bin width 1), as ``TokenHistogram.add_tokens`` launches it;
+    equal to plain and to ``np.bincount`` (else ``AssertionError``);
+    events and device times in turns with ``torch.bincount`` on the same
+    row, and the plain version's time by events."""
+    row = torch.from_numpy(np.ascontiguousarray(bins, np.int32)).to(dev).view(1, -1)
+
+    def kernel():
+        return ecdf_hist_many(row, n_bins=[n_bins], bin_widths=[1])
+
+    def plain():
+        return ecdf_hist_many_plain(row, n_bins=[n_bins], bin_widths=[1])
+
+    def library():
+        return torch.bincount(row[0], minlength=n_bins)
+
+    got, want = kernel(), plain()
+    if not torch.equal(got, want):
+        raise AssertionError("token histogram: counts differ from plain")
+    if not np.array_equal(got.cpu().numpy(), np.bincount(bins, minlength=n_bins).astype(np.float32)):
+        raise AssertionError("token histogram: counts differ from np.bincount")
+    return dict(
+        _turns(kernel, library, reps), rows=int(row.shape[1]), n_bins=n_bins,
+        plain_ms=events_ms(plain, 2), max_abs_err=float((got - want).abs().max()),
+    )
+
+
 def _searches(run_lens) -> tuple[int, float]:
     """The rows that search (all but the largest run's, ties in size to
     the higher index) and the binary-search steps of the searches of the
@@ -266,6 +301,10 @@ def run(*, n_rows: int = 5 * ROWS_PER_SF, seed: int = 0) -> dict:
     torch.cuda.empty_cache()
     stats = TableStats.from_columns({c: v[:1] for c, v in kc.items()}, orders_schema())
     out["hist"] = hist_case(writes[0][0], stats, dev)
+    names = tuple(kc)
+    hist = TokenHistogram.build(orders_schema().total_bits(names))
+    tokens = pack_columns(kc, names, orders_schema())
+    out["token_hist"] = token_hist_case(tokens >> hist.shift, hist.n_bins, dev)
     return out
 
 

@@ -13,7 +13,7 @@ from .engine import (
 )
 from .hrca import HRCAResult, hrca, initial_state
 from .keys import KeySchema, pack_columns, pack_tuple
-from .ring import Partition, ReplicaHandle, TokenRing, place_replica
+from .ring import Partition, ReplicaHandle, TokenHistogram, TokenRing, place_replica
 from .storage import (
     VIEW_ROWS_CAP,
     CommitLog,
@@ -23,7 +23,13 @@ from .storage import (
     query_view_eligible,
     verify_views,
 )
-from .table import ScanResult, SortedTable, slab_bounds_for, slab_bounds_many
+from .table import (
+    ScanResult,
+    SortedTable,
+    merge_partial_scans,
+    slab_bounds_for,
+    slab_bounds_many,
+)
 from .workload import Eq, Query, Range, Workload, random_workload
 
 __all__ = [
@@ -46,6 +52,7 @@ __all__ = [
     "pack_tuple",
     "Partition",
     "ReplicaHandle",
+    "TokenHistogram",
     "TokenRing",
     "place_replica",
     "CommitLog",
@@ -57,6 +64,7 @@ __all__ = [
     "verify_views",
     "ScanResult",
     "SortedTable",
+    "merge_partial_scans",
     "slab_bounds_for",
     "slab_bounds_many",
     "Eq",

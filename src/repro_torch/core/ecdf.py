@@ -158,7 +158,7 @@ class ColumnStats:
         or the batch exceeds the row guard."""
         values = np.asarray(values, dtype=np.int64)
         if device is not None and self.device_ok(values):
-            add = _device_counts([self], [values], device)[0]
+            add = device_counts([values], [self.n_bins], [self.bin_width], device)[0]
         else:
             idx = values // self.bin_width
             add = np.bincount(idx, minlength=self.n_bins).astype(np.float64)
@@ -223,8 +223,10 @@ class TableStats:
         if device is not None:
             on_card = [name for name, v in key_cols.items() if self.columns[name].device_ok(v)]
         if on_card:
-            adds = _device_counts(
-                [self.columns[c] for c in on_card], [key_cols[c] for c in on_card], device
+            stats = [self.columns[c] for c in on_card]
+            adds = device_counts(
+                [key_cols[c] for c in on_card],
+                [cs.n_bins for cs in stats], [cs.bin_width for cs in stats], device,
             )
             for name, add in zip(on_card, adds):
                 self.columns[name].fold(add)
@@ -247,11 +249,15 @@ class TableStats:
         )
 
 
-def _device_counts(stats: list[ColumnStats], values: list[np.ndarray], device) -> list[np.ndarray]:
-    """Each column's per-bin counts, float64[n_bins], from one
-    ``ecdf_hist_many`` launch on ``device``: the columns (of one length)
-    go up as one int32 block, pinned on a CUDA device so the copy does
-    not wait for the stream, and the counts come back in one readback."""
+def device_counts(
+    values: list[np.ndarray], n_bins: list[int], bin_widths: list[int], device
+) -> list[np.ndarray]:
+    """Each column's counts of ``values[i] // bin_widths[i]`` over
+    ``n_bins[i]`` bins, float64, from one ``ecdf_hist_many`` launch on
+    ``device``: the columns (of one length) go up as one int32 block,
+    pinned on a CUDA device so the copy does not wait for the stream, and
+    the counts come back in one readback. The statistics refresh and the
+    token histogram (``ring.TokenHistogram``) both count through here."""
     import torch
 
     from ..kernels.ecdf_hist import ecdf_hist_many
@@ -263,6 +269,6 @@ def _device_counts(stats: list[ColumnStats], values: list[np.ndarray], device) -
         block[i] = v
     flat = ecdf_hist_many(
         host.to(device, non_blocking=True),
-        n_bins=[cs.n_bins for cs in stats], bin_widths=[cs.bin_width for cs in stats],
+        n_bins=n_bins, bin_widths=bin_widths,
     ).cpu().numpy().astype(np.float64)
-    return np.split(flat, np.cumsum([cs.n_bins for cs in stats])[:-1])
+    return np.split(flat, np.cumsum(n_bins)[:-1])

@@ -12,10 +12,10 @@ carries them:
   Write Scheduler   → commit log → per-replica memtable → flushed sorted
                       runs, each replica merging in its own layout
 
-It is the reference engine (``repro.core.engine``) cut to one token
-partition and consistency ONE: the same cost matrices, tie rule and
-round-robin draws pick the same replica for every query, and the same
-write path produces the same tables. On a ``device_resident=True`` column
+It is the reference engine (``repro.core.engine``) cut to consistency
+ONE on a fixed ring: the same cost matrices, tie rule and round-robin
+draws pick the same replica for every query, and the same write path
+produces the same tables. On a ``device_resident=True`` column
 family every replica's table lives as tensors on the engine's device:
 each ``read``/``read_many`` replica group is one fused locate+scan launch
 (plus one select-compaction launch for selects with matches), each flush
@@ -27,10 +27,20 @@ counts are planned with a capped row estimate and answered from per-block
 partials plus boundary-block rescans, each flush extends the view and each
 compaction rebuilds it, on the view kernels.
 
+``partitions > 1`` splits the keyspace over a token ring
+(``core.ring``): each partition holds a full heterogeneous replica set of
+its rows, its own commit log, memtables, round-robin counter and
+statistics. ``read_many`` scatters each query over the partitions its slab
+can touch (skipping those whose observed tokens miss it), ranks each
+partition's replicas with that partition's statistics, runs each
+(partition, replica) group as above, and gathers the partial answers in
+ring order; writes route rows by token to their partitions' logs and
+replicas, and feed the column family's token histogram, on the histogram
+kernel for a device-resident column family.
+
 Features of the reference outside this slice raise ``NotImplementedError``
-naming their ROADMAP.md item: partitions > 1 (with or without views),
-consistency above ONE, hedged reads, node failure and recovery, scrub and
-resharding.
+naming their ROADMAP.md item: consistency above ONE, hedged reads, node
+failure and recovery, scrub, and ring migration (split, merge, rebalance).
 
 Batched reads (``read_many``) keep the reference's semantics exactly:
 the cost matrix over (replica, query) equals Q×R scalar estimates, one
@@ -58,8 +68,8 @@ from .cost_model import (
 )
 from .ecdf import TableStats
 from .hrca import HRCAResult, exhaustive_search, hrca, initial_state
-from .keys import KeySchema
-from .ring import Partition, ReplicaHandle, TokenRing, place_replica
+from .keys import KeySchema, pack_columns
+from .ring import Partition, ReplicaHandle, TokenHistogram, TokenRing, place_replica
 from .storage import CommitLog, CompactionPolicy, Memtable, compact_table
 from .storage.memtable import combine_digests
 from .storage.views import (
@@ -68,7 +78,7 @@ from .storage.views import (
     query_view_eligible,
     view_eligible_matrix,
 )
-from .table import ScanResult, SortedTable
+from .table import ScanResult, SortedTable, merge_partial_scans, slab_bounds_many
 from .workload import Query, Workload
 
 __all__ = [
@@ -124,6 +134,9 @@ ENGINE_COUNTERS = (
     "commitlog_auto_checkpoints",
     "memtable_flushes",
     "compactions",
+    # (partition, query) pairs the scatter path skipped: the partition's
+    # observed tokens provably miss the query's slab
+    "empty_partition_skips",
     "corrupt_runs",
     "flush_wall_seconds",
     # materialized per-slab views: queries the view path answered, live
@@ -143,11 +156,16 @@ class Node:
 
 @dataclasses.dataclass
 class ColumnFamily:
-    """One keyspace: a single token partition holding the heterogeneous
-    replica set (one table per layout in ``slot_layouts``), its commit
-    log, memtables, compaction policy and round-robin counter. ``stats``
-    and the cost model hold the selectivities the planner ranks
-    replicas with."""
+    """One keyspace: a token ring over the canonical packed key space and
+    one :class:`Partition` per ring range, each holding a full
+    heterogeneous replica set of that range's rows (slot ``s`` in
+    ``slot_layouts[s]``, global replica id ``vnode_id * RF + s``) with its
+    own commit log, memtables, compaction policy and round-robin counter.
+    ``stats`` and the cost model hold the column-family-wide
+    selectivities (the ``P = 1`` planner's); a partitioned column family
+    ranks each partition's replicas with ``Partition.stats``.
+    ``commitlog``/``memtables``/``compaction``/``rr_counter`` are the
+    single-partition views."""
 
     name: str
     schema: KeySchema
@@ -169,6 +187,10 @@ class ColumnFamily:
     # touched) and the Cost Evaluator caps their row estimate at
     # VIEW_ROWS_CAP
     views: bool = False
+    # observed-token histogram (P > 1 only), fed by CREATE and every write
+    token_hist: TokenHistogram | None = None
+    # next unused virtual-node id (vnode ids are never reused)
+    next_vnode: int = 0
 
     @property
     def replication_factor(self) -> int:
@@ -223,11 +245,13 @@ def _tie_threshold(best_cost: float) -> float:
 
 
 def _schedule_picks(cost_mat: np.ndarray, counter) -> np.ndarray:
-    """Request Scheduler core: per query (column of the ``(replicas,
+    """Request Scheduler core, shared by the single-partition and
+    partitioned planners: per query (column of the ``(replicas,
     queries)`` cost matrix) the within-tolerance ties are the first
     tie_count entries of the column's stable ascending order — the tie
-    list a scalar ``read`` builds — and one round-robin draw is consumed
-    per query in batch order. Returns each query's picked replica row."""
+    list a scalar ``read`` builds — and one round-robin draw from
+    ``counter`` is consumed per query in batch order. Returns each
+    query's picked replica row."""
     order = np.argsort(cost_mat, axis=0, kind="stable")  # (R, Q)
     sorted_costs = np.take_along_axis(cost_mat, order, axis=0)
     thresh = _tie_threshold(sorted_costs[0])  # elementwise over queries
@@ -237,12 +261,13 @@ def _schedule_picks(cost_mat: np.ndarray, counter) -> np.ndarray:
     return order[draws % tie_counts, np.arange(n_q)]
 
 
-def _group_by_pick(picks: np.ndarray) -> dict[int, list[int]]:
-    """Group query indices by their picked replica row, in order of first
-    pick; one batched scan serves each group."""
+def _group_by_pick(picks: np.ndarray, qidx: Sequence[int]) -> dict[int, list[int]]:
+    """Group global query indices (``qidx[j]`` is column ``j``'s) by their
+    picked replica row, in order of first pick; one batched scan serves
+    each group."""
     groups: dict[int, list[int]] = {}
-    for i, k in enumerate(picks):
-        groups.setdefault(int(k), []).append(i)
+    for j, qi in enumerate(qidx):
+        groups.setdefault(int(picks[j]), []).append(qi)
     return groups
 
 
@@ -252,11 +277,12 @@ class HREngine:
     ``device`` (default ``cuda``; raises if CUDA is absent) is where
     device-resident column families keep their tensors and run their
     kernels; pass ``device="cpu"`` to run the plain PyTorch versions.
-    A per-replica result cache maps ``(agg, value col, filter
-    signature) → ScanResult``, fed by both ``read`` and ``read_many``,
-    bounded in entries (FIFO) and in retained select-index bytes, and
-    invalidated by flushes and compactions; hit/miss counters are on
-    :attr:`stats`. Every flushed run is checksum-verified before it
+    ``result_cache`` (default on) keeps a per-replica map ``(agg, value
+    col, filter signature) → ScanResult``, fed by both ``read`` and
+    ``read_many``, bounded in entries (FIFO) and in retained select-index
+    bytes, and invalidated by flushes and compactions; hit/miss counters
+    are on :attr:`stats`. With ``result_cache=False`` every read pays its
+    scan. Every flushed run is checksum-verified before it
     merges, and the default :class:`CompactionPolicy` folds the run
     stack.
     """
@@ -266,6 +292,7 @@ class HREngine:
         n_nodes: int = 6,
         *,
         device=None,
+        result_cache: bool = True,
         memtable_rows: int = 0,
         commitlog_checkpoint_records: int = 256,
     ) -> None:
@@ -281,6 +308,7 @@ class HREngine:
         self.device = resolve_device(device)
         self.nodes = [Node(node_id=i) for i in range(n_nodes)]
         self.column_families: dict[str, ColumnFamily] = {}
+        self._cache_enabled = result_cache
         self._result_cache: dict[tuple[str, int], dict] = {}
         # running total of selected-array bytes per replica map
         self._cache_sel_bytes: dict[tuple[str, int], int] = {}
@@ -302,6 +330,7 @@ class HREngine:
         self._view_hits = self.metrics.counter("view_hits")
         self._view_boundary_rows = self.metrics.counter("view_boundary_rows")
         self._view_rebuilds = self.metrics.counter("view_rebuilds")
+        self._empty_partition_skips = self.metrics.counter("empty_partition_skips")
 
     # -- stats and result cache ----------------------------------------------
 
@@ -382,16 +411,19 @@ class HREngine:
         mechanism: str = "HR",
         workload: Workload | None = None,
         schema: KeySchema | None = None,
+        hrca_kwargs: dict | None = None,
         layouts: Sequence[Sequence[str]] | None = None,
         device_resident: bool = False,
         views: bool = False,
         memtable_rows: int | None = None,
         partitions: int = 1,
+        partition_balance: str = "equal",
     ) -> ColumnFamily:
         """CREATE COLUMN FAMILY: choose replica structures, build tables.
 
         mechanism:
-          "HR" — layouts from HRCA over ``workload`` (paper).
+          "HR" — layouts from HRCA over ``workload`` (paper), with
+                 ``hrca_kwargs`` passed to :func:`hrca`.
           "TR" — the single best expert layout, identical on all replicas
                  (exhaustive for ≤5 keys, else annealing + greedy polish).
         Explicit ``layouts`` override both.
@@ -402,7 +434,8 @@ class HREngine:
         resident tensors and the compaction policy merges them on the
         device. Raises if the schema exceeds the device path's per-column
         two-lane budget. The CREATE-time dataset is record 0 of the
-        column family's commit log.
+        column family's commit log (of each partition's, the rows it
+        owns).
 
         ``views=True`` (requires ``device_resident``) additionally
         materializes a per-slab aggregate view on every replica table:
@@ -412,15 +445,24 @@ class HREngine:
         answered from the stored partials plus a rescan of at most the two
         window-edge blocks per run, bit-identical to the fused scan. Views
         extend at flush and rebuild at compaction.
+
+        ``partitions`` splits the keyspace over a token ring
+        (``core.ring``): each of ``P`` contiguous token ranges owns a full
+        heterogeneous replica set of just its rows, its own commit log,
+        memtables and ``TableStats``. ``partition_balance`` places the
+        boundaries: ``"equal"`` splits the key space evenly, ``"tokens"``
+        at exact quantiles of the CREATE rows' tokens. With
+        ``mechanism="HR"`` and ``P > 1`` HRCA optimizes the
+        row-weighted blend of the per-partition cost models. On a
+        device-resident column family the CREATE tokens go through the
+        histogram kernel into ``ColumnFamily.token_hist``.
+        ``partitions=1`` (default) is the unpartitioned engine.
         """
         if views and not device_resident:
             raise ValueError(
                 "views=True requires device_resident=True (views are "
                 "per-block partials of the resident value tile)"
             )
-        if partitions != 1:
-            what = "views=True with partitions > 1" if views else "partitions > 1"
-            raise _not_in_slice(what, "Queue 1 item 3")
         if name in self.column_families:
             raise ValueError(f"column family {name!r} exists")
         if schema is None:
@@ -431,7 +473,36 @@ class HREngine:
         model = CostModel(stats=stats)
         n = replication_factor
         hrca_result: HRCAResult | None = None
-        ring = TokenRing.build(schema, key_names, 1)
+
+        # the ring and the per-partition stats come before the layout
+        # choice: HRCA over a partitioned column family optimizes against
+        # each partition's own selectivities
+        tokens = token_hist = None
+        part_stats: list[TableStats | None]
+        if partitions == 1:
+            ring = TokenRing.build(schema, key_names, 1)
+            owner_masks: list = [None]  # the whole dataset, no slicing copies
+            part_stats = [None]
+        else:
+            kc_arr = {c: np.asarray(key_cols[c]) for c in key_names}
+            tokens = pack_columns(kc_arr, key_names, schema)
+            if partition_balance == "equal":
+                ring = TokenRing.build(schema, key_names, partitions)
+            elif partition_balance == "tokens":
+                ring = TokenRing.from_tokens(schema, key_names, tokens, partitions)
+            else:
+                raise ValueError(
+                    f"unknown partition_balance {partition_balance!r} "
+                    "(expected 'equal' or 'tokens')"
+                )
+            pids = ring.partition_of_tokens(tokens)
+            owner_masks = [pids == pid for pid in range(partitions)]
+            part_stats = [
+                TableStats.from_columns({c: kc_arr[c][mask] for c in key_names}, schema)
+                for mask in owner_masks
+            ]
+            token_hist = TokenHistogram.build(ring.total_bits)
+            token_hist.add_tokens(tokens, device=self.device if device_resident else None)
 
         if layouts is not None:
             chosen = tuple(tuple(a) for a in layouts)
@@ -446,41 +517,64 @@ class HREngine:
         elif mechanism == "HR":
             if workload is None:
                 raise ValueError("HR mechanism needs a workload for HRCA")
-            hrca_result = hrca(model, workload, initial_state(key_names, n))
+            if partitions == 1:
+                hrca_model = model
+            else:
+                # per-partition models weighted by their rows: the shared
+                # layout set is optimized for what each partition serves
+                hrca_model = [(float(ps.n_rows), CostModel(stats=ps)) for ps in part_stats]
+            hrca_result = hrca(
+                hrca_model, workload, initial_state(key_names, n), **dict(hrca_kwargs or {})
+            )
             chosen = hrca_result.layouts
         else:
             raise ValueError(f"unknown mechanism {mechanism!r}")
 
-        handles: list[ReplicaHandle] = []
-        memtables: dict[int, Memtable] = {}
-        digest: int | None = None  # layout-independent: one per partition
-        for slot, layout in enumerate(chosen):
-            rid = slot
-            table = SortedTable.from_columns(key_cols, value_cols, layout, schema)
-            if device_resident:
-                table.place_on_device(self.device)
-                if views:
-                    table.build_views()
-            if digest is None:
-                digest = table.seal_checksum().stored_digest
+        parts: list[Partition] = []
+        for pid, mask in enumerate(owner_masks):
+            if mask is None:
+                kc_p, vc_p = key_cols, value_cols
             else:
-                table.stored_digest = digest
-            node_id = self._place(rid, name)
-            self.nodes[node_id].tables[(name, rid)] = table
-            handles.append(ReplicaHandle(rid, tuple(layout), node_id, partition_id=0))
-            memtables[rid] = Memtable(layout, schema, key_names, value_names)
-        log = CommitLog(key_names=key_names, value_names=value_names)
-        log.append(key_cols, value_cols)  # record 0: the CREATE-time rows
-        lo, hi = ring.token_range(0)
-        part = Partition(
-            partition_id=0,
-            token_lo=lo,
-            token_hi=hi,
-            replicas=handles,
-            commitlog=log,
-            memtables=memtables,
-            compaction=self.compaction,
-        )
+                kc_p = {c: np.asarray(key_cols[c])[mask] for c in key_names}
+                vc_p = {c: np.asarray(value_cols[c])[mask] for c in value_names}
+            handles: list[ReplicaHandle] = []
+            memtables: dict[int, Memtable] = {}
+            digest: int | None = None  # layout-independent: one per partition
+            for slot, layout in enumerate(chosen):
+                rid = pid * n + slot
+                table = SortedTable.from_columns(kc_p, vc_p, layout, schema)
+                if device_resident:
+                    table.place_on_device(self.device)
+                    if views:
+                        table.build_views()
+                if digest is None:
+                    digest = table.seal_checksum().stored_digest
+                else:
+                    table.stored_digest = digest
+                node_id = self._place(rid, name)
+                self.nodes[node_id].tables[(name, rid)] = table
+                handles.append(ReplicaHandle(rid, tuple(layout), node_id, partition_id=pid))
+                memtables[rid] = Memtable(layout, schema, key_names, value_names)
+            log = CommitLog(key_names=key_names, value_names=value_names)
+            log.append(kc_p, vc_p)  # record 0: the rows this partition owns
+            lo, hi = ring.token_range(pid)
+            part = Partition(
+                partition_id=pid,
+                token_lo=lo,
+                token_hi=hi,
+                replicas=handles,
+                commitlog=log,
+                memtables=memtables,
+                compaction=self.compaction,
+                vnode_id=pid,  # birth identity == ring position at CREATE
+                stats=part_stats[pid],
+                # every replica table holds exactly record 0
+                flushed_lsn={r.replica_id: log.next_lsn for r in handles},
+            )
+            if tokens is not None:
+                part.observe_tokens(tokens[mask])
+            parts.append(part)
+
         cf = ColumnFamily(
             name=name,
             schema=schema,
@@ -488,13 +582,15 @@ class HREngine:
             value_names=value_names,
             slot_layouts=tuple(tuple(a) for a in chosen),
             ring=ring,
-            partitions=[part],
+            partitions=parts,
             stats=stats,
             cost_model=model,
             hrca_result=hrca_result,
             device_resident=device_resident,
             memtable_rows=self.memtable_rows if memtable_rows is None else memtable_rows,
             views=views,
+            token_hist=token_hist,
+            next_vnode=partitions,
         )
         self.column_families[name] = cf
         return cf
@@ -556,11 +652,14 @@ class HREngine:
     ) -> tuple[ScanResult, ReadReport]:
         """Route to the cheapest replica; ties broken round-robin.
         Same costs, tie rule and round-robin counter as ``read_many``, so
-        routing is identical to ``read_many`` at Q = 1. ``trace`` (an open
-        span, or None) hangs an ``engine.read`` subtree under the
+        routing is identical to ``read_many`` at Q = 1; a partitioned
+        column family goes through ``read_many`` at Q = 1. ``trace`` (an
+        open span, or None) hangs an ``engine.read`` subtree under the
         caller's."""
         self._check_read_options(consistency, hedge)
         cf = self.column_families[cf_name]
+        if cf.ring.n_partitions > 1:
+            return self.read_many(cf_name, [query], trace=trace)[0]
         span = (
             trace.child("engine.read", cf=cf_name, level=consistency)
             if trace is not None
@@ -610,9 +709,10 @@ class HREngine:
         trace=None,
     ) -> list[tuple[ScanResult, ReadReport]]:
         """Batched ``read``: one scheduler pass and one grouped scan per
-        chosen replica. Returns per-query ``(ScanResult, ReadReport)`` in
-        batch order; results and routing are identical to calling ``read``
-        on each query in sequence."""
+        chosen replica (per partition and chosen replica on a partitioned
+        column family, :meth:`_read_many_partitioned`). Returns per-query
+        ``(ScanResult, ReadReport)`` in batch order; results and routing
+        are identical to calling ``read`` on each query in sequence."""
         self._check_read_options(consistency, hedge)
         cf = self.column_families[cf_name]
         queries = list(queries)
@@ -626,6 +726,8 @@ class HREngine:
             else None
         )
         try:
+            if cf.ring.n_partitions > 1:
+                return self._read_many_partitioned(cf, queries, trace=span)
             replicas = cf.replicas
             n_q = len(queries)
             # vectorized Cost Evaluator: Eq (1)-(2) over all (replica,
@@ -663,7 +765,7 @@ class HREngine:
                 plan.end(replicas=len(replicas))
             results: list[ScanResult | None] = [None] * n_q
             reports: list[ReadReport | None] = [None] * n_q
-            for k, sub in _group_by_pick(picks).items():
+            for k, sub in _group_by_pick(picks, range(n_q)).items():
                 self._execute_group(
                     cf, replicas[k], sub, queries, rows_mat[k], cost_mat[k], results, reports,
                     trace=span,
@@ -677,14 +779,17 @@ class HREngine:
         self, cf: ColumnFamily, r: ReplicaHandle, group: list[Query], *, trace=None,
     ) -> tuple[list[ScanResult], list[float]]:
         """Core scan for one replica's query group: read-barrier flush,
-        result cache, one ``execute_many`` for the misses. Returns per-query ``(scans, walls)`` aligned with
-        ``group``; cache hits carry zero attributed wall."""
+        result cache (when enabled), one ``execute_many`` for the misses.
+        Returns per-query ``(scans, walls)`` aligned with ``group``; cache
+        hits carry zero attributed wall."""
         self._ensure_flushed(cf, r, trace=trace)
         table = self._table(cf, r)
         cp = trace.child("engine.cache_probe") if trace is not None else None
-        cache = self._result_cache.setdefault((cf.name, r.replica_id), {})
-        ckeys = self._cache_keys(group)
-        hit_j = {j for j, k in enumerate(ckeys) if k in cache}
+        cache = ckeys = None
+        if self._cache_enabled:
+            cache = self._result_cache.setdefault((cf.name, r.replica_id), {})
+            ckeys = self._cache_keys(group)
+        hit_j = set() if cache is None else {j for j, k in enumerate(ckeys) if k in cache}
         miss_j = [j for j in range(len(group)) if j not in hit_j]
         if cp is not None:
             cp.end(hits=len(hit_j), misses=len(miss_j))
@@ -716,9 +821,11 @@ class HREngine:
         for j, sr in zip(miss_j, miss_scans):
             scans[j] = sr
             walls[j] = per_q_wall
-            self._cache_store((cf.name, r.replica_id), cache, ckeys[j], sr)
-        self._cache_hits.inc(len(hit_j))
-        self._cache_misses.inc(len(miss_j))
+            if cache is not None:
+                self._cache_store((cf.name, r.replica_id), cache, ckeys[j], sr)
+        if cache is not None:
+            self._cache_hits.inc(len(hit_j))
+            self._cache_misses.inc(len(miss_j))
         return scans, walls  # type: ignore[return-value]
 
     def _execute_group(
@@ -760,6 +867,146 @@ class HREngine:
                 rows_scanned=sr.rows_scanned,
             )
 
+    # -- scatter-gather over the token ring ------------------------------------
+
+    def _partition_row_offsets(self, cf: ColumnFamily) -> np.ndarray:
+        """Global row offset of each partition in the cross-partition
+        select index space (partitions concatenated in ring order), from
+        the partition logs' row counts, so independent of staging state."""
+        rows = np.array([part.n_rows_committed for part in cf.partitions], dtype=np.int64)
+        offsets = np.zeros(len(rows), dtype=np.int64)
+        np.cumsum(rows[:-1], out=offsets[1:])
+        return offsets
+
+    def _read_many_partitioned(
+        self, cf: ColumnFamily, queries: list[Query], *, trace=None,
+    ) -> list[tuple[ScanResult, ReadReport]]:
+        """Scatter-gather ``read_many`` over a partitioned column family.
+
+        **Scatter** (host): each query's canonical slab bounds (the
+        ``slab_bounds_many`` walk over ``key_names``, the packing the
+        ring's tokens use) give a contiguous span of partitions
+        (``TokenRing.span_partitions``). A ``(partition, query)`` pair
+        whose slab misses the partition's observed token range
+        (``Partition.may_contain``) is dropped (``empty_partition_skips``):
+        no launch and no cache probe. Per partition the Cost Evaluator
+        ranks the slot layouts with the partition's own ``TableStats``
+        (with the view cap on a views column family), the round-robin
+        tie-break draws from the partition's own counter (one draw per
+        query in batch order), and each ``(partition, replica)`` group
+        runs through ``_execute_group``.
+
+        **Gather** (host): per query, the partials merge in ring order
+        (``merge_partial_scans``): sums and counts add, select indices
+        shift by their partition's row offset. The report carries the
+        first executing partition's routing and the summed wall; a query
+        whose partitions were all skipped gets an empty result and a
+        placeholder report (``replica_id == node_id == -1``).
+        """
+        n_q = len(queries)
+        sc = trace.child("engine.scatter") if trace is not None else None
+        bounds = slab_bounds_many(queries, cf.key_names, cf.schema)
+        p_lo, p_hi = cf.ring.span_partitions(bounds)
+        touched: dict[int, list[int]] = {}
+        for qi in range(n_q):
+            for pid in range(int(p_lo[qi]), int(p_hi[qi]) + 1):
+                if not cf.partitions[pid].may_contain(int(bounds[qi, 0]), int(bounds[qi, 1])):
+                    self._empty_partition_skips.inc()
+                    continue
+                touched.setdefault(pid, []).append(qi)
+        if sc is not None:
+            sc.end(partitions=len(touched))
+
+        n_slots = len(cf.slot_layouts)
+        partials: dict[int, tuple[list, list]] = {}
+        for pid in sorted(touched):
+            ps = trace.child("engine.partition", partition=pid) if trace is not None else None
+            part = cf.partitions[pid]
+            qidx = touched[pid]
+            group = [queries[i] for i in qidx]
+            rows_sub, cost_sub = cf.cost_model.rank_matrices(cf.slot_layouts, group, stats=part.stats)
+            # view term: the single-partition planner's cap, per (slot
+            # layout, group query)
+            if cf.views and any(q.agg in VIEW_AGGS for q in group):
+                elig = view_eligible_matrix(cf.slot_layouts, group)
+                if elig.any():
+                    capped = np.minimum(rows_sub, float(VIEW_ROWS_CAP))
+                    cost_sub = np.where(
+                        elig,
+                        np.stack(
+                            [
+                                cf.cost_model.cost_fn(len(lay)).many(capped[s])
+                                for s, lay in enumerate(cf.slot_layouts)
+                            ]
+                        ),
+                        cost_sub,
+                    )
+            picks = _schedule_picks(cost_sub, part.rr_counter)
+            # estimates at full batch width: _execute_group indexes them by
+            # global query index
+            rows_mat = np.zeros((n_slots, n_q))
+            cost_mat = np.zeros((n_slots, n_q))
+            rows_mat[:, qidx] = rows_sub
+            cost_mat[:, qidx] = cost_sub
+            res_p: list[ScanResult | None] = [None] * n_q
+            rep_p: list[ReadReport | None] = [None] * n_q
+            for k, sub in _group_by_pick(picks, qidx).items():
+                self._execute_group(
+                    cf, part.replicas[k], sub, queries, rows_mat[k], cost_mat[k], res_p, rep_p,
+                    trace=ps,
+                )
+            if ps is not None:
+                ps.end()
+            partials[pid] = (res_p, rep_p)
+
+        ga = trace.child("engine.gather") if trace is not None else None
+        offsets = self._partition_row_offsets(cf)
+        out: list[tuple[ScanResult, ReadReport]] = []
+        for qi in range(n_q):
+            scans = []
+            reps: list[ReadReport] = []
+            for pid in range(int(p_lo[qi]), int(p_hi[qi]) + 1):
+                if pid not in partials or partials[pid][0][qi] is None:
+                    continue  # skipped: provably no rows in this slab
+                scans.append((partials[pid][0][qi], int(offsets[pid])))
+                reps.append(partials[pid][1][qi])
+            if not scans:
+                empty_sel = np.empty(0, dtype=np.int64) if queries[qi].agg == "select" else None
+                out.append((
+                    ScanResult(0.0, 0, 0, empty_sel),
+                    ReadReport(
+                        replica_id=-1, node_id=-1, estimated_rows=0.0, estimated_cost=0.0,
+                        wall_seconds=0.0, rows_scanned=0,
+                    ),
+                ))
+                continue
+            merged = merge_partial_scans(scans, queries[qi].agg)
+            first = reps[0]
+            out.append((
+                merged,
+                ReadReport(
+                    replica_id=first.replica_id,
+                    node_id=first.node_id,
+                    estimated_rows=first.estimated_rows,
+                    estimated_cost=first.estimated_cost,
+                    wall_seconds=sum(r.wall_seconds for r in reps),
+                    rows_scanned=merged.rows_scanned,
+                ),
+            ))
+        if ga is not None:
+            ga.end()
+        return out
+
+    def partition_imbalance(self, cf_name: str) -> float:
+        """Max/mean committed-row imbalance across the ring (1.0 =
+        perfectly balanced)."""
+        cf = self.column_families[cf_name]
+        rows = np.array([p.n_rows_committed for p in cf.partitions], dtype=np.float64)
+        total = rows.sum()
+        if total <= 0:
+            return 1.0
+        return float(rows.max() / (total / rows.size))
+
     # -- Write Scheduler -------------------------------------------------------
 
     def write(
@@ -775,10 +1022,22 @@ class HREngine:
         column family's commit log, (2) staged into each replica's
         memtable, and (3) flushed as one sorted run per replica when the
         staging threshold is reached (``memtable_rows``; 0 =
-        write-through). On a device-resident column family the statistics refresh runs
-        the histogram kernel on the engine's device, each flush appends
-        its run to the resident tensors, and the compaction policy merges
-        the run stack on the device once it outgrows the base."""
+        write-through). On a device-resident column family the statistics
+        refresh runs the histogram kernel on the engine's device, each
+        flush appends its run to the resident tensors, and the compaction
+        policy merges the run stack on the device once it outgrows the
+        base.
+
+        On a partitioned column family the batch is first split by the
+        token ring: its tokens are packed once and folded into the token
+        histogram (on the histogram kernel for a device-resident column
+        family), each owning partition's sub-batch becomes one record in
+        that partition's commit log, stages into that partition's
+        replicas only and merges into that partition's statistics. The
+        threshold check spans every replica of the column family. The
+        reference's post-flush rebalance trigger (its
+        ``rebalance_imbalance``, off by default) comes with ``rebalance``
+        (ROADMAP.md Queue 1 item 4); until then it stays off here."""
         cf = self.column_families[cf_name]
         t0 = time.perf_counter()
         w = (
@@ -789,18 +1048,46 @@ class HREngine:
             if trace is not None
             else None
         )
-        part = cf.partitions[0]
+        device = self.device if cf.device_resident else None
+        if cf.ring.n_partitions == 1:
+            routed = [(cf.partitions[0], None)]
+        else:
+            kc_arr = {c: np.asarray(key_cols[c]) for c in cf.key_names}
+            vc_arr = {c: np.asarray(value_cols[c]) for c in cf.value_names}
+            tokens = cf.ring.tokens(kc_arr, cf.schema)
+            pids = cf.ring.partition_of_tokens(tokens)
+            cf.token_hist.add_tokens(tokens, device=device)
+            routed = []
+            for pid in np.unique(pids):
+                mask = pids == pid
+                routed.append((
+                    cf.partitions[int(pid)],
+                    (
+                        {c: v[mask] for c, v in kc_arr.items()},
+                        {c: v[mask] for c, v in vc_arr.items()},
+                        tokens[mask],
+                    ),
+                ))
         la = w.child("engine.log_append") if w is not None else None
-        part.commitlog.append(key_cols, value_cols)
-        rec = part.commitlog.tail
+        recs = []
+        for part, sub in routed:
+            kc_p, vc_p = (key_cols, value_cols) if sub is None else sub[:2]
+            part.commitlog.append(kc_p, vc_p)
+            recs.append(part.commitlog.tail)
         if la is not None:
-            la.end(partitions=1)
+            la.end(partitions=len(routed))
         ms = w.child("engine.memtable_stage") if w is not None else None
         # the record's columns are the log's own immutable copies, so
         # every memtable stages them by reference — one copy per write
-        for r in part.replicas:
-            part.memtables[r.replica_id].stage(rec.key_cols, rec.value_cols, copy=False)
-        cf.stats.merge_rows(key_cols, device=self.device if cf.device_resident else None)
+        for (part, sub), rec in zip(routed, recs):
+            for r in part.replicas:
+                part.memtables[r.replica_id].stage(rec.key_cols, rec.value_cols, copy=False)
+            if sub is not None:
+                part.observe_tokens(sub[2])
+            if part.stats is not None:
+                # the routed sub-batch folds into the partition it joined
+                part.stats.merge_rows(rec.key_cols, device=device)
+        cf.stats.merge_rows(key_cols, device=device)
         if ms is not None:
             ms.end()
         if cf.memtable_rows <= 0 or any(
@@ -828,7 +1115,6 @@ class HREngine:
         if not pending:
             return
         t0 = time.perf_counter()
-        part = cf.partitions[0]
         for r in pending:
             # peek, don't drain: the memtable is cleared only after the
             # merged table is installed, so an exception never loses rows
@@ -872,6 +1158,9 @@ class HREngine:
             node.tables[(cf.name, r.replica_id)] = merged
             self._memtable(cf, r).clear()
             self._flushes.inc()
+            part = cf.partitions[r.partition_id]
+            # this replica's table now holds every log record below the tail
+            part.flushed_lsn[r.replica_id] = part.commitlog.next_lsn
             self._invalidate_result_cache(cf.name, r.replica_id)
             if part.compaction is not None:
                 tc = trace.tracer.now() if trace is not None else 0.0
@@ -885,16 +1174,20 @@ class HREngine:
                     self._invalidate_result_cache(cf.name, r.replica_id)
                     if trace is not None:
                         trace.child("engine.compaction", t=tc, replica=r.replica_id).end()
-        # count-based auto-checkpoint once every replica is drained
+        # count-based auto-checkpoint of each flushed partition's log once
+        # every replica of that partition is drained
         k = self.commitlog_checkpoint_records
-        log = part.commitlog
-        if (
-            k
-            and log.should_checkpoint(k)
-            and not any(mt.n_staged for mt in part.memtables.values())
-        ):
-            log.checkpoint()
-            self._auto_checkpoints.inc()
+        if k:
+            for pid in sorted({r.partition_id for r in pending}):
+                part = cf.partitions[pid]
+                log = part.commitlog
+                if log.should_checkpoint(k) and not any(
+                    mt.n_staged for mt in part.memtables.values()
+                ):
+                    log.checkpoint()
+                    for rid in part.flushed_lsn:
+                        part.flushed_lsn[rid] = log.next_lsn
+                    self._auto_checkpoints.inc()
         self._flush_wall.inc(time.perf_counter() - t0)
 
     def _ensure_views(self, cf: ColumnFamily, table: SortedTable) -> None:
@@ -929,10 +1222,16 @@ class HREngine:
         self._flush_replicas(cf, cf.replicas)
 
     def checkpoint_commitlog(self, cf_name: str) -> int:
-        """Flush every replica, then collapse the commit log into one
-        snapshot record; returns its LSN."""
+        """Flush every replica, then collapse each partition's commit log
+        into one snapshot record; returns the highest snapshot LSN (the
+        only one when ``partitions == 1``)."""
         self.flush_memtables(cf_name)
-        return self.column_families[cf_name].commitlog.checkpoint()
+        top = 0
+        for part in self.column_families[cf_name].partitions:
+            top = max(top, part.commitlog.checkpoint())
+            for rid in part.flushed_lsn:
+                part.flushed_lsn[rid] = part.commitlog.next_lsn
+        return top
 
     # -- outside this slice ------------------------------------------------------
 

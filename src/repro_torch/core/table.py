@@ -33,6 +33,7 @@ __all__ = [
     "ScanResult",
     "slab_bounds_for",
     "slab_bounds_many",
+    "merge_partial_scans",
 ]
 
 
@@ -48,6 +49,40 @@ class ScanResult:
     rows_scanned: int  # slab size — rows streamed from storage (paper Row())
     rows_matched: int  # rows passing all residual predicates
     selected: np.ndarray | None = None  # row indices for agg == "select"
+
+
+def merge_partial_scans(
+    partials: Sequence[tuple[ScanResult, int]], agg: str
+) -> ScanResult:
+    """Merge per-partition partial scan results into one ``ScanResult``
+    (the gather half of a partitioned ``read_many``).
+
+    ``partials`` is ``[(result, row_offset)]`` in ring order; partitions
+    hold disjoint row sets, so sums, match counts and slab row counts
+    simply add (partial sums accumulate in ring order, so the float
+    result is deterministic). For ``agg == "select"`` each partition's
+    local row indices shift by that partition's global row offset and
+    concatenate — the merged index space is "partitions in ring order,
+    each in its serving replica's serialization order", the P-partition
+    analogue of a single replica's row order. Offsets are applied into
+    fresh arrays: a partial may be a shared (frozen) result-cache entry.
+    """
+    if len(partials) == 1 and agg != "select":
+        return partials[0][0]
+    value = sum(float(r.value) for r, _ in partials)
+    scanned = sum(int(r.rows_scanned) for r, _ in partials)
+    matched = sum(int(r.rows_matched) for r, _ in partials)
+    if agg != "select":
+        return ScanResult(value, scanned, matched)
+    chunks = [
+        r.selected.astype(np.int64, copy=True) + off
+        for r, off in partials
+        if r.selected is not None and r.selected.size
+    ]
+    selected = (
+        np.concatenate(chunks) if chunks else np.empty(0, np.int64)
+    )
+    return ScanResult(float(matched), scanned, matched, selected=selected)
 
 
 def slab_bounds_for(

@@ -429,6 +429,76 @@ def test_views_engine_on_the_card_matches_the_fused_engine(cuda_device):
         assert verify_views(ev._table(ev.column_families["o"], r))
 
 
+# -- partitioned column families --------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_token_histogram_on_the_card_equals_bincount(cuda_device):
+    """``TokenHistogram.add_tokens`` on the card at 4096 bins (the 45-bit
+    ``orders`` key space): one ``ecdf_hist`` launch a call below 2**24
+    tokens, counts equal to ``np.bincount`` exactly; a call above 2**24
+    tokens takes the host path and launches nothing."""
+    schema = orders_schema()
+    hist = T.TokenHistogram.build(schema.total_bits(tuple(schema.bits)))
+    assert hist.n_bins == 4096
+    rng = np.random.default_rng(31)
+    space = 1 << hist.total_bits
+    batches = [
+        rng.integers(0, space, 1),
+        rng.integers(0, space, 20_000),
+        np.minimum(rng.zipf(1.2, 7_500_000), space) - 1,
+        rng.integers(0, space, (1 << 24) + 1),
+    ]
+    hl = K.KERNELS["ecdf_hist"]
+    for i, toks in enumerate(batches):
+        before = hl.launches
+        hist.add_tokens(toks, device=cuda_device)
+        assert hl.launches == before + (1 if toks.size < (1 << 24) else 0)
+        want = np.bincount(np.concatenate(batches[: i + 1]) >> hist.shift, minlength=hist.n_bins)
+        np.testing.assert_array_equal(hist.counts, want)
+
+
+@pytest.mark.cuda
+def test_partitioned_family_on_the_card_matches_the_cpu(cuda_device):
+    """A P = 3 device-resident column family (token-quantile boundaries)
+    on the card and on the CPU, through reads, a write drip that compacts
+    and reads again: the same replica for every query, equal answers and
+    selects, equal token histograms and per-partition statistics."""
+    kc, vc = generate_orders(0.02, seed=33)
+    layouts = [("clerk", "orderdate", "custkey"), ("custkey", "orderdate", "clerk"),
+               ("orderdate", "clerk", "custkey")]
+    engines = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        eng = T.HREngine(n_nodes=6, device=dev)
+        eng.create_column_family(
+            "o", kc, vc, replication_factor=3, layouts=layouts, schema=orders_schema(),
+            device_resident=True, partitions=3, partition_balance="tokens",
+        )
+        engines[dev.type] = eng
+    wl = T.tpch.q1_q2_workload(n_instances=96, n_rows=len(kc["custkey"]), seed=34)
+    qs = list(wl.queries[:48]) + [T.Query(filters=q.filters, agg="select") for q in wl.queries[48:]]
+    qs.append(T.Query(filters={"custkey": T.Range(0, 300)}, agg="select"))
+    kw, vw = generate_orders(0.002, seed=35)
+    for step in range(10):
+        for eng in engines.values():
+            sl = slice(step * 300, (step + 1) * 300)
+            eng.write("o", {c: v[sl] for c, v in kw.items()}, {c: v[sl] for c, v in vw.items()})
+        if step in (0, 9):
+            a, b = (engines[k].read_many("o", qs) for k in ("cuda", "cpu"))
+            for (ra, pa), (rb, pb) in zip(a, b):
+                assert (pa.replica_id, pa.node_id) == (pb.replica_id, pb.node_id)
+                assert (ra.rows_scanned, ra.rows_matched) == (rb.rows_scanned, rb.rows_matched)
+                np.testing.assert_allclose(ra.value, rb.value, rtol=1e-5, atol=1e-3)
+                if ra.selected is not None:
+                    np.testing.assert_array_equal(ra.selected, rb.selected)
+    ca, cb = engines["cuda"].column_families["o"], engines["cpu"].column_families["o"]
+    assert engines["cuda"].stats["compactions"] == engines["cpu"].stats["compactions"] > 0
+    np.testing.assert_array_equal(ca.token_hist.counts, cb.token_hist.counts)
+    for pa, pb in zip(ca.partitions, cb.partitions):
+        for c in pa.stats.columns:
+            np.testing.assert_array_equal(pa.stats.columns[c].counts, pb.stats.columns[c].counts)
+
+
 # -- the row-slab read path ------------------------------------------------------------
 
 

@@ -282,9 +282,13 @@ def test_features_outside_the_slice_raise(engines):
     kc, vc = generate_orders(0.001, seed=1)
     eng = T.HREngine(n_nodes=3, device="cpu")
     schema = T.KeySchema(dict(orders_schema().bits))
-    for kwargs in ({"views": True, "device_resident": True, "partitions": 2}, {"partitions": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            eng.create_column_family("x", kc, vc, replication_factor=2, schema=schema, **kwargs)
+    for name, kwargs in (("pv", {"views": True, "device_resident": True}), ("p", {})):
+        eng.create_column_family(
+            name, kc, vc, replication_factor=2, mechanism="TR", schema=schema, partitions=2, **kwargs
+        )
+        for call in (eng.split_partition, eng.merge_partitions, eng.rebalance):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+                call(name, 0)
     q = _queries(T, wl)[0]
     for kwargs in ({"consistency": "QUORUM"}, {"consistency": "ALL"}, {"hedge": True}):
         with pytest.raises(NotImplementedError):
