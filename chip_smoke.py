@@ -9,7 +9,9 @@ flush and append, and compact the run stack on the device; then the same
 on a second column family with materialized per-slab views, whose
 eligible sums and counts are served from per-block partials; and the
 same rows partitioned over a token ring (four partitions of three
-replicas), read by scatter-gather and written by routed writes. It holds
+replicas), read by scatter-gather and written by routed writes; then the
+availability layer on all three (digest reads with read repair, hinted
+handoff, recovery, hedges, failover, scrub with view healing). It holds
 every kernel of these paths against its plain PyTorch version on the same
 CUDA tensors, at the paths' shapes, and times both.
 
@@ -123,14 +125,34 @@ Phases, each asserting (a failure exits non-zero and prints no result):
   12. breakdown  one fresh batch on orders, orders_v and orders_p: the engine's spans
                 on the host clock, and a second under torch.profiler (the
                 fused scan's scan_partials and scan_fold apart)
+  13. availability  orders_v: a corrupted view partial and a deleted view,
+                reported and healed by scrub, then a batch whose view-served
+                answers equal the fused kernel bit for bit. orders_p: a
+                QUORUM batch, one node's loss (reads routed around it) and
+                recovery across its partitions. orders: a fresh batch at
+                ONE, QUORUM and ALL (no digest mismatch unless the replicas
+                disagree in float32 on a sum, counted first); one flipped
+                exponent bit in a replica's resident value tile, unseen by
+                the checksum, found by an ALL read of that row (one digest
+                mismatch, one read repair, the repaired state a fresh
+                build); a transient fail_node, two writes of 20,000 rows,
+                node_up replaying exactly those rows, every replica's
+                fingerprint equal; a node loss rebuilt from the log, then
+                from a survivor, each rebuilt state array-equal to a fresh
+                build of the same rows; a hedged batch with one node slowed
+                past hedge_ratio; a failover with read_fault_budget = 1.
+                Every answer against the oracle
 Every kernel wrapper's launch count is set to 0 just before phase 3 and
 read after phase 7, just before phase 5 and after it, just before phase 6
 and after it, just before each of phase 8's two column families and after
-it, and just before phase 10 and after it; phases 5, 6 and 8 count apart
-and their counts are restored after them, so the main path's counts hold
-phases 3, 4 and 7. Each kernel must have launched on its path (the
-row-slab kernels on phase 5's, rows 1-4 on phase 8's, the view kernels on
-phase 10's); the row-slab line reports phase 6's launches beside phase 5's.
+it, just before phase 10 and after it, and just before phase 13 and
+after it; phases 5, 6, 8 and 13 count apart and their counts are
+restored after them, so the main path's counts hold phases 3, 4 and 7.
+Each kernel must have launched on its path (the row-slab kernels on phase
+5's, rows 1-4 on phase 8's, the view kernels on phase 10's, the fused
+scan, select compaction, histogram and both view kernels on phase 13's);
+the row-slab line reports phase 6's launches beside phase 5's, and the
+kernels line's launches add phase 13's to the main path's.
 The oracle is a brute-force pass over every generated row on the card
 (plain PyTorch masks and float64 sums); checks that launch kernels
 (verify_views, the fused comparisons, the select checks) leave the
@@ -143,7 +165,9 @@ measurements in full), the row-slab line, the partitions line (CREATE
 and HRCA walls, the ring, partition imbalance and rows per partition,
 empty-partition skips, batch, write and per-flush walls, launches per
 kernel, the token histogram's launch times; ``orders_pv``'s), the
-batched-read line, the card's name and power limit, and
+batched-read line, the availability line (walls of the scrub, recovery,
+``node_up`` and the QUORUM/ALL batches, the counters each step moved,
+the launches, the card), the card's name and power limit, and
 ``{"ok": true, "device": ...}``. The kernels line's ``ecdf_hist`` row
 carries the token histogram's launches under ``token_hist``.
 
@@ -213,6 +237,7 @@ KERNEL_INFO = {
 ORDERS_KERNELS = ("scan_agg_locate", "select_compact", "merge_run_positions", "ecdf_hist")
 VIEW_KERNELS = ("block_sums", "boundary_block_sums")
 ROW_SLAB_KERNELS = ("slab_locate", "scan_agg_rowstream", "scan_agg_qgrid")
+AVAIL_KERNELS = ("scan_agg_locate", "select_compact", "ecdf_hist", "block_sums", "boundary_block_sums")
 
 
 def fail(msg: str) -> None:
@@ -1466,6 +1491,274 @@ def partitioned_views_phase(layouts, seed, dev) -> dict:
 # -- main path -----------------------------------------------------------------------
 
 
+# -- phase 13: the availability layer -------------------------------------------------
+
+
+def replica_noise(eng, cf_name, batch) -> int:
+    """Queries of ``batch`` whose float32 answers differ across the replicas
+    that hold them (each replica table of each partition runs the batch;
+    launches left out of the path's counts). A sum's float32 reduction order
+    follows each replica's layout, so such a query's digests can disagree on
+    clean data; counts and selects never do."""
+    cf = eng.column_families[cf_name]
+
+    def run():
+        noisy = set()
+        for part in cf.partitions:
+            answers = [eng._table(cf, r).execute_many(batch) for r in part.replicas]
+            for i in range(len(batch)):
+                vals = {(np.float32(a[i].value).tobytes(), a[i].rows_matched) for a in answers}
+                if len(vals) > 1:
+                    noisy.add(i)
+        return len(noisy)
+
+    return uncounted(run)
+
+
+def flip_resident(table, col: str, host_row: int) -> None:
+    """Flip the top exponent bit of one float32 in a resident value tile:
+    the value of ``col`` at host row ``host_row``, at its device row. The
+    host columns, and so the sealed checksum, are untouched."""
+    st = table._device
+    d = host_row if st["row_map"] is None else int(np.flatnonzero(st["row_map"] == host_row)[0])
+    bits = st["values_tile"][st["value_rows"][col]].view(torch.int32)
+    bits[d] ^= 1 << 30
+
+
+def fresh_state_equal(table, key_cols, value_cols, dev) -> bool:
+    """A rebuilt replica's resident key lanes and value tile against a
+    fresh ``build_device_state`` of the same rows in its layout."""
+    import repro_torch.core as T
+    from repro_torch.kernels import ops
+
+    fresh_table = T.SortedTable.from_columns(key_cols, value_cols, table.layout, table.schema)
+    fresh = ops.build_device_state(fresh_table, device=dev)
+    st = table._device
+    ok = (
+        st["n_runs"] == 1 and st["row_map"] is None
+        and torch.equal(st["keys"], fresh["keys"]) and torch.equal(st["values_tile"], fresh["values_tile"])
+    )
+    del fresh, fresh_table
+    return ok
+
+
+def timed(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` and its wall in ms on the host clock, the
+    card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def delta(eng, before: dict, names) -> dict:
+    st = eng.stats
+    return {k: st[k] - before[k] for k in names}
+
+
+AVAIL_COUNTERS = (
+    "digest_mismatches", "read_repairs", "read_retries", "read_faults", "hints_queued", "hint_replays",
+    "hint_rows_replayed", "hint_fallbacks", "scrub_checks", "scrub_repairs", "view_rebuilds",
+)
+
+
+def availability_phase(eng, veng, peng, key_cols, value_cols, writes, n_rows, seed, dev) -> dict:
+    """The availability layer on the three SF 5 column families.
+
+    ``orders``: a fresh batch of 256 at ONE, QUORUM and ALL (answers
+    against the oracle; with no replica disagreeing in float32 on the
+    batch, no digest mismatch); one flipped exponent bit in one replica's
+    resident value tile, caught by an ALL batch on that row (one read
+    repair, the answer the oracle's, the repaired state a fresh build) and
+    not by the checksum; a transient ``fail_node``, two writes of 20,000
+    rows, ``node_up`` replaying exactly those 40,000 rows, every replica's
+    fingerprint equal afterwards; a node loss, ``recover_node`` from the log
+    and (after a second loss) from a survivor, each rebuilt state equal to
+    a fresh build of the same rows; a hedged batch with one node slowed
+    past ``hedge_ratio``; a failover with ``read_fault_budget = 1``.
+    ``orders_v``: a corrupted view partial and a deleted view, reported and
+    healed by scrub, then view-served sums equal to the fused scan bit for
+    bit. ``orders_p``: a QUORUM batch, and one node's loss and recovery
+    across its partitions. Every answer against the oracle."""
+    import repro_torch.core as T
+    from repro_torch.core.storage.views import verify_views
+
+    info: dict = {"card": card_line()}
+    rows10 = (
+        {c: np.concatenate([key_cols[c]] + [w[0][c] for w in writes]) for c in key_cols},
+        {c: np.concatenate([value_cols[c]] + [w[1][c] for w in writes]) for c in value_cols},
+    )
+    oracle = Oracle(*rows10, dev)
+
+    # -- orders_v: scrub reports and heals a corrupt and a missing view
+    vcf = veng.column_families["orders_v"]
+    before = veng.stats
+    t0, t1 = (veng._table(vcf, r) for r in vcf.replicas[:2])
+    t0._device["views"]["block_sums"][0, 1] = 2 * t0._device["views"]["block_sums"][0, 1] + 1
+    del t1._device["views"]
+    report, info["scrub_ms"] = timed(veng.scrub_column_family, "orders_v")
+    bad = [vcf.replicas[0].replica_id, vcf.replicas[1].replica_id]
+    check(report == {"replicas_checked": 3, "corrupt": bad, "repaired": 2}, f"orders_v scrub: {report}")
+    check(all(uncounted(verify_views, veng._table(vcf, r)) for r in vcf.replicas), "scrub left a view unhealed")
+    batch = read_batches(n_rows, seed + 6)[1]
+    out, info["orders_v_batch_ms"] = timed(veng.read_many, "orders_v", batch)
+    check_answers(veng, "orders_v", list(zip(batch, out)), oracle, "orders_v after scrub")
+    info["orders_v_view_served"] = uncounted(check_view_bits, veng, "orders_v", list(zip(batch, out)), "after scrub")
+    check(info["orders_v_view_served"] > 0, "no view served a sum or count after the heal")
+    info["orders_v"] = delta(veng, before, AVAIL_COUNTERS)
+    check(info["orders_v"]["view_rebuilds"] == 2 and info["orders_v"]["scrub_repairs"] == 2, "scrub counters")
+
+    # -- orders_p: a QUORUM batch, then one node's loss and recovery
+    pcf = peng.column_families["orders_p"]
+    served = ServedBy(peng)
+    before = peng.stats
+    batch = read_batches(n_rows, seed + 7)[0]
+    noise = replica_noise(peng, "orders_p", batch)
+    out, info["orders_p_quorum_ms"] = timed(served.read_many, "orders_p", batch, consistency="QUORUM")
+    mism = peng.stats["digest_mismatches"] - before["digest_mismatches"]
+    check(noise > 0 or mism == 0, f"orders_p QUORUM: {mism} digest mismatches on agreeing replicas")
+    if mism == 0:
+        check_partitioned(peng, "orders_p", list(zip(batch, out)), served.map, oracle, "orders_p QUORUM")
+    victim = pcf.partitions[0].replicas[0].node_id
+    hosted = [r for r in pcf.replicas if r.node_id == victim]
+    peng.fail_node(victim)
+    out = served.read_many("orders_p", batch[:64])
+    check(all(rep.node_id != victim for _, rep in out), "orders_p: a read reached the lost node")
+    check_partitioned(peng, "orders_p", list(zip(batch[:64], out)), served.map, oracle, "orders_p during the loss")
+    info["orders_p_recover_ms"] = timed(peng.recover_node, victim)[1]
+    for r in hosted:
+        t = peng._table(pcf, r)
+        part = pcf.partitions[r.partition_id]
+        check(len(t) == part.n_rows_committed and t.verify_checksum(), f"orders_p replica {r.replica_id} rebuilt wrong")
+    out = served.read_many("orders_p", batch[64:128])
+    check_partitioned(peng, "orders_p", list(zip(batch[64:128], out)), served.map, oracle, "orders_p after recovery")
+    info["orders_p"] = dict(delta(peng, before, AVAIL_COUNTERS), replica_noise=noise,
+                            lost_replicas=[r.replica_id for r in hosted])
+    torch.cuda.empty_cache()
+
+    # -- orders: ONE, QUORUM and ALL on a fresh batch
+    cf = eng.column_families["orders"]
+    before = eng.stats
+    batch = read_batches(n_rows, seed + 6)[0]
+    noise = replica_noise(eng, "orders", batch)
+    walls = {}
+    outs = {}
+    for level in ("ONE", "QUORUM", "ALL"):
+        outs[level], walls[level] = timed(eng.read_many, "orders", batch, consistency=level)
+        check_answers(eng, "orders", list(zip(batch, outs[level])), oracle, f"orders at {level}")
+    for (a, _), (b, _), (c, _) in zip(outs["ONE"], outs["QUORUM"], outs["ALL"]):
+        check(a.rows_matched == b.rows_matched == c.rows_matched, "QUORUM/ALL rows_matched differ from ONE")
+    levels = delta(eng, before, AVAIL_COUNTERS)
+    check(noise > 0 or levels["digest_mismatches"] == 0, f"orders: digest mismatches {levels} on agreeing replicas")
+    info["orders_levels"] = dict(levels, replica_noise=noise, batch_ms=walls)
+
+    # -- orders: one flipped resident value, found by an ALL read
+    flip_r = cf.replicas[1]
+    table = eng._table(cf, flip_r)
+    q = None
+    for host_row in range(0, len(table), len(table) // 64):
+        key = {c: int(table.key_cols[c][host_row]) for c in cf.key_names}
+        cand = T.Query({c: T.Eq(v) for c, v in key.items()}, "sum", "totalprice")
+        if oracle.answer(cand, cf.schema)[0] == 1:
+            q = cand
+            break
+    check(q is not None, "no row with a unique key to flip")
+    flip_resident(table, "totalprice", host_row)
+    check(eng.scrub_column_family("orders", repair=False)["corrupt"] == [], "the checksum saw a resident flip")
+    probe = [q, T.Query(q.filters, "count"), T.Query(q.filters, "select")]
+    before = eng.stats
+    out, info["orders_flip_all_ms"] = timed(eng.read_many, "orders", probe, consistency="ALL")
+    flip = delta(eng, before, AVAIL_COUNTERS)
+    check(flip["digest_mismatches"] == 1 and flip["read_repairs"] == 1, f"resident flip: {flip}")
+    check_answers(eng, "orders", list(zip(probe, out)), oracle, "after the read repair")
+    check(fresh_state_equal(eng._table(cf, flip_r), *rows10, dev), "the repaired replica is not a fresh build")
+    info["orders_flip"] = dict(flip, replica=flip_r.replica_id, host_row=host_row)
+    del oracle
+    torch.cuda.empty_cache()
+
+    # -- orders: a transient outage healed by hinted handoff
+    wk, wv = T.tpch.generate_orders(1.0, seed=seed + 9, rows_per_sf=2 * WRITE_ROWS)
+    outage = [
+        ({c: v[i * WRITE_ROWS:(i + 1) * WRITE_ROWS] for c, v in wk.items()},
+         {c: v[i * WRITE_ROWS:(i + 1) * WRITE_ROWS] for c, v in wv.items()})
+        for i in range(2)
+    ]
+    rows12 = (
+        {c: np.concatenate([rows10[0][c]] + [w[0][c] for w in outage]) for c in key_cols},
+        {c: np.concatenate([rows10[1][c]] + [w[1][c] for w in outage]) for c in value_cols},
+    )
+    del rows10
+    victim_r = cf.replicas[2]
+    victim = victim_r.node_id
+    hosted = sum(r.node_id == victim for r in cf.replicas)
+    before = eng.stats
+    eng.fail_node(victim, transient=True)
+    check(eng.stats["hints_open"] == hosted, "the outage opened no hint")
+    write_ms = [timed(eng.write, "orders", k, v)[1] for k, v in outage]
+    _, info["node_up_ms"] = timed(eng.node_up, victim)
+    hh = delta(eng, before, AVAIL_COUNTERS)
+    check(
+        hh["hints_queued"] == 2 * hosted and hh["hint_replays"] == hosted and hh["hint_fallbacks"] == 0,
+        f"hinted handoff: {hh}",
+    )
+    check(hh["hint_rows_replayed"] == 2 * WRITE_ROWS * hosted, f"node_up replayed {hh['hint_rows_replayed']} rows")
+    fps = {eng._table(cf, r).dataset_fingerprint() for r in cf.replicas}
+    check(len(fps) == 1, "replica fingerprints differ after node_up")
+    info["orders_outage"] = dict(hh, write_ms=write_ms, victim_replica=victim_r.replica_id)
+
+    # -- orders: a node loss, rebuilt from the log, then from a survivor
+    oracle = Oracle(*rows12, dev)
+    info["recover_ms"] = {}
+    for source in ("log", "survivor"):
+        eng.fail_node(victim)
+        # the rows the rebuild sorts: the log's, or the first live peer's
+        peer = next(r for r in cf.replicas if r.node_id != victim)
+        rows = rows12 if source == "log" else (
+            eng._table(cf, peer).key_cols, eng._table(cf, peer).value_cols
+        )
+        _, info["recover_ms"][source] = timed(eng.recover_node, victim, source=source)
+        check(fresh_state_equal(eng._table(cf, victim_r), *rows, dev), f"recover_node({source}) != a fresh build")
+    fps = {eng._table(cf, r).dataset_fingerprint() for r in cf.replicas}
+    check(len(fps) == 1, "replica fingerprints differ after recovery")
+    out = eng.read_many("orders", batch)
+    check_answers(eng, "orders", list(zip(batch, out)), oracle, "orders after recovery")
+    del rows12
+
+    # -- orders: a hedged batch, one node slowed past hedge_ratio
+    hbatch = read_batches(n_rows, seed + 8)[0]
+    plain = eng.read_many("orders", hbatch[:64])
+    slow = max({rep.node_id for _, rep in plain}, key=lambda n: sum(rep.node_id == n for _, rep in plain))
+    eng.nodes[slow].slowdown = 1e4
+    try:
+        out, info["hedged_batch_ms"] = timed(eng.read_many, "orders", hbatch, hedge=True)
+    finally:
+        eng.nodes[slow].slowdown = 1.0
+    hedged = sum(rep.hedged for _, rep in out)
+    check(hedged > 0, "no hedge fired against a 1e4x straggler")
+    check_answers(eng, "orders", list(zip(hbatch, out)), oracle, "hedged")
+    info["hedge"] = dict(slow_node=slow, hedged=hedged, slowdown=1e4, hedge_ratio=2.0)
+
+    # -- orders: a failover, one transient read fault on the node that served
+    # most of a batch (its cached answers dropped, so the rerun scans)
+    fbatch = read_batches(n_rows, seed + 10)[0]
+    nodes = [rep.node_id for _, rep in eng.read_many("orders", fbatch)]
+    faulty = max(set(nodes), key=nodes.count)
+    eng._invalidate_result_cache("orders")
+    before = eng.stats
+    eng.nodes[faulty].read_fault_budget = 1
+    out, info["failover_batch_ms"] = timed(eng.read_many, "orders", fbatch)
+    fo = delta(eng, before, AVAIL_COUNTERS)
+    check(fo["read_faults"] == 1 and fo["read_retries"] > 0, f"failover: {fo}")
+    check_answers(eng, "orders", list(zip(fbatch, out)), oracle, "after the failover")
+    info["failover"] = dict(fo, faulty_node=faulty)
+    info["total_bytes"] = {"orders": eng.total_bytes(), "orders_v": veng.total_bytes(), "orders_p": peng.total_bytes()}
+    del oracle
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return info
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=5.0, help="TPC-H scale factor (1.5 M rows each)")
@@ -1709,7 +2002,20 @@ def run(args, dev) -> None:
         n_rows, args.seed + 5,
     )
 
-    # 13. report
+    # 13. the availability layer on the three column families, its launch
+    # counts from 0, then added to the kernels line's
+    avail, avail_launches = phases.run(
+        "availability", own_counts, availability_phase,
+        eng, veng, peng, key_cols, value_cols, writes, n_rows, args.seed,
+        dev,
+    )
+    for name in AVAIL_KERNELS:
+        check(avail_launches[name] > 0, f"kernel {name} was not launched on the availability path")
+    avail["launches"] = {name: n for name, n in avail_launches.items() if n}
+    for name, n in avail_launches.items():
+        launches[name] += n
+
+    # 14. report
     small_tile = report.pop("small_tile")
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1730,6 +2036,7 @@ def run(args, dev) -> None:
     print(json.dumps({"row_slab": dict(card=card, **row_slab_info)}))
     print(json.dumps({"partitions": dict(card=card, **partitions_info)}))
     print(json.dumps({"batched_read": dict(card=card, **trajectory)}))
+    print(json.dumps({"availability": avail}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

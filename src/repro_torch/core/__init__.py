@@ -1,15 +1,23 @@
 """Heterogeneous-replica core of the port: composite keys → SortedTable →
 ECDF stats → cost model (Eq 1–4) → HRCA (Alg 1) → HREngine (paper §4),
-with materialized per-slab views on device-resident replicas."""
+with materialized per-slab views on device-resident replicas and the
+availability layer (hinted handoff, digest reads with read repair, hedged
+reads and failover, recovery, scrub)."""
 
 from .cost_model import CostModel, LinearCostFunction, estimate_rows, estimate_rows_many
 from .ecdf import ColumnStats, TableStats
 from .engine import (
+    ALL,
+    ONE,
+    QUORUM,
     ColumnFamily,
     CorruptRunError,
     HREngine,
     Node,
     ReadReport,
+    TransientFault,
+    TransientFlushError,
+    TransientReadError,
 )
 from .hrca import HRCAResult, hrca, initial_state
 from .keys import KeySchema, pack_columns, pack_tuple
@@ -39,8 +47,14 @@ __all__ = [
     "estimate_rows_many",
     "ColumnStats",
     "TableStats",
+    "ONE",
+    "QUORUM",
+    "ALL",
     "ColumnFamily",
     "CorruptRunError",
+    "TransientFault",
+    "TransientReadError",
+    "TransientFlushError",
     "HREngine",
     "Node",
     "ReadReport",

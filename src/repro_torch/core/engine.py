@@ -1,52 +1,83 @@
 """HR Engine — the shim layer of paper §4 on a simulated cluster, with
 device-resident column families served by hand-written CUDA kernels.
 
-The modules of the paper's Figure 3, as far as this slice of the port
-carries them:
+The modules of the paper's Figure 3, as far as the port carries them:
 
   Request Agency    → ``HREngine.read`` / ``read_many`` / ``write``
   Replica Generator → ``create_column_family`` (HRCA at CREATE, then crc32
                       placement of replicas on nodes)
   Cost Evaluator    → ``CostModel`` over live ``TableStats``
   Request Scheduler → cheapest-replica routing with a round-robin tie-break
+                      and optional straggler hedging
   Write Scheduler   → commit log → per-replica memtable → flushed sorted
                       runs, each replica merging in its own layout
+  Recovery          → rebuild lost replicas from the partition's commit log
+                      or by re-sorting a survivor, in their own layouts
 
-It is the reference engine (``repro.core.engine``) cut to consistency
-ONE on a fixed ring: the same cost matrices, tie rule and round-robin
-draws pick the same replica for every query, and the same write path
-produces the same tables. On a ``device_resident=True`` column
-family every replica's table lives as tensors on the engine's device:
-each ``read``/``read_many`` replica group is one fused locate+scan launch
-(plus one select-compaction launch for selects with matches), each flush
-appends a run to the resident tensors, the compaction policy merges the
-run stack on the device, and every write's statistics refresh runs the
-histogram kernel there. With ``views=True`` every replica also keeps a
-materialized per-slab view (``storage.views``): view-eligible sums and
-counts are planned with a capped row estimate and answered from per-block
-partials plus boundary-block rescans, each flush extends the view and each
-compaction rebuilds it, on the view kernels.
+It is the reference engine (``repro.core.engine``) without ring
+migration: the same cost matrices, tie rule and round-robin draws pick the
+same replica for every query, and the same write path produces the same
+tables. On a ``device_resident=True`` column family every replica's table
+lives as tensors on the engine's device: each ``read``/``read_many``
+replica group is one fused locate+scan launch (plus one select-compaction
+launch for selects with matches), each flush appends a run to the resident
+tensors, the compaction policy merges the run stack on the device, and
+every write's statistics refresh runs the histogram kernel there. With
+``views=True`` every replica also keeps a materialized per-slab view
+(``storage.views``): view-eligible sums and counts are planned with a
+capped row estimate and answered from per-block partials plus
+boundary-block rescans, each flush extends the view and each compaction
+rebuilds it, on the view kernels.
 
 ``partitions > 1`` splits the keyspace over a token ring
 (``core.ring``): each partition holds a full heterogeneous replica set of
 its rows, its own commit log, memtables, round-robin counter and
 statistics. ``read_many`` scatters each query over the partitions its slab
 can touch (skipping those whose observed tokens miss it), ranks each
-partition's replicas with that partition's statistics, runs each
+partition's live replicas with that partition's statistics, runs each
 (partition, replica) group as above, and gathers the partial answers in
 ring order; writes route rows by token to their partitions' logs and
 replicas, and feed the column family's token histogram, on the histogram
 kernel for a device-resident column family.
 
-Features of the reference outside this slice raise ``NotImplementedError``
-naming their ROADMAP.md item: consistency above ONE, hedged reads, node
-failure and recovery, scrub, and ring migration (split, merge, rebalance).
+Availability (the reference's layer, same semantics and counters):
+
+* **Hinted handoff.** ``fail_node(node, transient=True)`` keeps the node's
+  tables and opens a hint per hosted replica: the LSN through which its
+  table is flushed (``Partition.hints``/``flushed_lsn``). ``node_up``
+  replays only the log tail past the hint and merges it as one sorted run
+  (on a resident table: appended to the tensors, the view extended),
+  falling back to a full rebuild (``hint_fallbacks``) when the tail is
+  gone. ``recover_node`` rebuilds a lost node's replicas from the log or
+  from a survivor; a rebuilt replica is placed on the engine's device and
+  its view built on the ``block_sums`` kernel.
+* **Tunable consistency.** ``consistency="QUORUM"|"ALL"`` executes each
+  query on the next cost-ranked replicas up to k and compares
+  layout-independent digests (:func:`_result_digest`); a mismatch repairs
+  the minority from the partition log and answers from the majority, or,
+  with no majority, rebuilds every consulted replica and re-executes.
+* **Failure detection and failover.** An attached ``failure_detector``
+  (``repro_torch.ft.detector``) is fed one wall per executed replica group
+  (``scan_timer`` × the node's slowdown) and multiplies the ranking costs
+  of suspected nodes; a scan that raises a :class:`TransientFault`
+  (``Node.read_fault_budget``) fails over to the next-ranked untried
+  replica (``read_retries``, bounded by ``read_retry_limit``).
+* **Scrub.** ``scrub_column_family`` re-verifies every live replica's
+  sealed content checksum (over the host columns) and heals mismatches
+  from the log; on a views column family it also audits the views against
+  the resident tensors and rebuilds corrupt or missing ones.
+
+Features of the reference outside the port raise ``NotImplementedError``
+naming their ROADMAP.md item: ring migration (split, merge, rebalance, the
+drift trigger) and ``parallel_writes`` (Queue 1 item 4b), read deadlines
+(item 5).
 
 Batched reads (``read_many``) keep the reference's semantics exactly:
 the cost matrix over (replica, query) equals Q×R scalar estimates, one
 round-robin draw is consumed per query in batch order, queries are
 grouped per chosen replica, and each replica keeps a result cache keyed
-by ``(agg, value col, filters)``, invalidated by flushes and compactions.
+by ``(agg, value col, filters)``, invalidated by flushes, compactions,
+node failure and recovery.
 """
 
 from __future__ import annotations
@@ -54,6 +85,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
+import zlib
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -71,11 +103,12 @@ from .hrca import HRCAResult, exhaustive_search, hrca, initial_state
 from .keys import KeySchema, pack_columns
 from .ring import Partition, ReplicaHandle, TokenHistogram, TokenRing, place_replica
 from .storage import CommitLog, CompactionPolicy, Memtable, compact_table
-from .storage.memtable import combine_digests
+from .storage.memtable import combine_digests, sort_run
 from .storage.views import (
     VIEW_AGGS,
     VIEW_ROWS_CAP,
     query_view_eligible,
+    verify_views,
     view_eligible_matrix,
 )
 from .table import ScanResult, SortedTable, merge_partial_scans, slab_bounds_many
@@ -91,6 +124,9 @@ __all__ = [
     "QUORUM",
     "ALL",
     "CONSISTENCY_LEVELS",
+    "TransientFault",
+    "TransientReadError",
+    "TransientFlushError",
     "CorruptRunError",
     "ENGINE_COUNTERS",
     "resolve_device",
@@ -122,6 +158,26 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class TransientFault(RuntimeError):
+    """A scan or flush raised in a retryable way (an injected fault). Carries
+    the faulting node id; the read planner fails over to the next-ranked
+    replica, writers retry the flush."""
+
+    def __init__(self, node_id: int, what: str) -> None:
+        super().__init__(f"transient {what} fault on node {node_id}")
+        self.node_id = node_id
+
+
+class TransientReadError(TransientFault):
+    def __init__(self, node_id: int) -> None:
+        super().__init__(node_id, "read")
+
+
+class TransientFlushError(TransientFault):
+    def __init__(self, node_id: int) -> None:
+        super().__init__(node_id, "flush")
+
+
 class CorruptRunError(RuntimeError):
     """A flushed run failed its crc32 verification before merging."""
 
@@ -137,6 +193,21 @@ ENGINE_COUNTERS = (
     # (partition, query) pairs the scatter path skipped: the partition's
     # observed tokens provably miss the query's slab
     "empty_partition_skips",
+    # availability: writes that accrued a hint for a transiently-down
+    # replica; node-up heals served from the hinted tail and full-rebuild
+    # fallbacks; digest reads; failover retries; scrub activity
+    "hints_queued",
+    "hint_replays",
+    "hint_rows_replayed",
+    "hint_fallbacks",
+    "digest_mismatches",
+    "read_repairs",
+    "read_retries",
+    "scrub_checks",
+    "scrub_repairs",
+    # faults raised, or survived by failover
+    "read_faults",
+    "flush_faults",
     "corrupt_runs",
     "flush_wall_seconds",
     # materialized per-slab views: queries the view path answered, live
@@ -151,7 +222,24 @@ ENGINE_COUNTERS = (
 @dataclasses.dataclass
 class Node:
     node_id: int
+    alive: bool = True
+    slowdown: float = 1.0  # > 1 = straggler: scan walls are multiplied by it
     tables: dict[tuple[str, int], SortedTable] = dataclasses.field(default_factory=dict)
+    # injected fault budgets: each > 0 count makes the next scan / flush on
+    # this node raise a TransientFault (a flapping node, not a clean death)
+    read_fault_budget: int = 0
+    flush_fault_budget: int = 0
+
+    def bytes_stored(self) -> int:
+        """Bytes of the host columns of every table the node holds (packed
+        keys, key and value columns): the reference's definition, so the
+        two engines report the same storage for the same rows."""
+        total = 0
+        for t in self.tables.values():
+            total += t.packed.nbytes
+            total += sum(c.nbytes for c in t.key_cols.values())
+            total += sum(np.asarray(c).nbytes for c in t.value_cols.values())
+        return total
 
 
 @dataclasses.dataclass
@@ -230,8 +318,9 @@ class ReadReport:
     node_id: int
     estimated_rows: float
     estimated_cost: float
-    wall_seconds: float  # measured scan time
+    wall_seconds: float  # measured scan time × node slowdown
     rows_scanned: int
+    hedged: bool = False
 
 
 _Ranked = tuple[float, float, ReplicaHandle]  # (est_cost, est_rows, handle)
@@ -244,21 +333,22 @@ def _tie_threshold(best_cost: float) -> float:
     return best_cost + abs(best_cost) * 1e-9 + 1e-12
 
 
-def _schedule_picks(cost_mat: np.ndarray, counter) -> np.ndarray:
+def _schedule_picks(cost_mat: np.ndarray, counter) -> tuple[np.ndarray, np.ndarray]:
     """Request Scheduler core, shared by the single-partition and
     partitioned planners: per query (column of the ``(replicas,
     queries)`` cost matrix) the within-tolerance ties are the first
     tie_count entries of the column's stable ascending order — the tie
     list a scalar ``read`` builds — and one round-robin draw from
-    ``counter`` is consumed per query in batch order. Returns each
-    query's picked replica row."""
+    ``counter`` is consumed per query in batch order. Returns ``(order,
+    picks)``: the stable cost order (failover, hedge and digest reads walk
+    it) and each query's picked replica row."""
     order = np.argsort(cost_mat, axis=0, kind="stable")  # (R, Q)
     sorted_costs = np.take_along_axis(cost_mat, order, axis=0)
     thresh = _tie_threshold(sorted_costs[0])  # elementwise over queries
     tie_counts = (sorted_costs <= thresh[None, :]).sum(axis=0)
     n_q = cost_mat.shape[1]
     draws = np.fromiter((next(counter) for _ in range(n_q)), dtype=np.int64, count=n_q)
-    return order[draws % tie_counts, np.arange(n_q)]
+    return order, order[draws % tie_counts, np.arange(n_q)]
 
 
 def _group_by_pick(picks: np.ndarray, qidx: Sequence[int]) -> dict[int, list[int]]:
@@ -271,6 +361,27 @@ def _group_by_pick(picks: np.ndarray, qidx: Sequence[int]) -> dict[int, list[int
     return groups
 
 
+def _result_digest(
+    scan: ScanResult, table: SortedTable, key_names: tuple[str, ...], schema: KeySchema,
+) -> int:
+    """Layout-independent digest of a ``ScanResult``: what QUORUM/ALL reads
+    compare across replicas. crc32 over ``rows_matched`` (int64), the
+    aggregate value quantized to float32, and for selects the sorted
+    canonical packed keys of the selected rows, built from the host key
+    columns (each replica reports its own serialization order, but the
+    selected row set is layout-independent). ``rows_scanned`` is left out:
+    it belongs to the serving layout, not to the answer. The reference's
+    definition, so both packages digest the same answer alike."""
+    h = zlib.crc32(np.int64(scan.rows_matched).tobytes())
+    with np.errstate(over="ignore"):  # corrupt totals may exceed float32
+        h = zlib.crc32(np.float32(scan.value).tobytes(), h)
+    if scan.selected is not None and np.asarray(scan.selected).size:
+        sel = np.asarray(scan.selected)
+        keys = pack_columns({c: table.key_cols[c][sel] for c in key_names}, key_names, schema)
+        h = zlib.crc32(np.ascontiguousarray(np.sort(keys)), h)
+    return h
+
+
 class HREngine:
     """Simulated-cluster HR engine (Request Agency facade).
 
@@ -280,11 +391,21 @@ class HREngine:
     ``result_cache`` (default on) keeps a per-replica map ``(agg, value
     col, filter signature) → ScanResult``, fed by both ``read`` and
     ``read_many``, bounded in entries (FIFO) and in retained select-index
-    bytes, and invalidated by flushes and compactions; hit/miss counters
-    are on :attr:`stats`. With ``result_cache=False`` every read pays its
-    scan. Every flushed run is checksum-verified before it
-    merges, and the default :class:`CompactionPolicy` folds the run
-    stack.
+    bytes, and invalidated by flushes, compactions, node failure and
+    recovery; hit/miss counters are on :attr:`stats`. With
+    ``result_cache=False`` every read pays its scan. Every flushed run is
+    checksum-verified before it merges, every installed table carries a
+    sealed content checksum, and the default :class:`CompactionPolicy`
+    folds the run stack.
+
+    ``failure_detector`` (duck-typed: ``record``/``record_failure``/
+    ``cost_factor``, see ``repro_torch.ft.detector``) is fed every executed
+    replica group's wall and down-ranks suspected nodes. ``scan_timer`` is
+    the zero-argument clock those walls come from (``time.perf_counter``
+    by default; a tick counter makes routing a pure function of the
+    operation sequence). ``read_retry_limit`` bounds the attempts a query
+    gets when scans raise transient faults (first try included; None =
+    one attempt per live replica).
     """
 
     def __init__(
@@ -295,6 +416,11 @@ class HREngine:
         result_cache: bool = True,
         memtable_rows: int = 0,
         commitlog_checkpoint_records: int = 256,
+        failure_detector=None,
+        read_retry_limit: int | None = None,
+        scan_timer=None,
+        parallel_writes: bool = False,
+        rebalance_imbalance: float = 0.0,
     ) -> None:
         if n_nodes < 1:
             raise ValueError("need at least one node")
@@ -305,6 +431,20 @@ class HREngine:
                 "commitlog_checkpoint_records must be >= 0 (0 = no "
                 "automatic checkpointing)"
             )
+        # the limit counts attempts (first try included), so anything below
+        # 1 would turn the first transient fault into an unanswerable query
+        if read_retry_limit is not None and read_retry_limit < 1:
+            raise ValueError(
+                "read_retry_limit must be >= 1 (attempts, first try "
+                "included; None = one attempt per live replica), got "
+                f"{read_retry_limit}"
+            )
+        if parallel_writes:
+            raise _not_in_slice("parallel_writes", "Queue 1 item 4b")
+        if rebalance_imbalance < 0:
+            raise ValueError("rebalance_imbalance must be >= 0 (0 = manual only)")
+        if rebalance_imbalance > 0:
+            raise _not_in_slice("rebalance_imbalance (the drift trigger)", "Queue 1 item 4b")
         self.device = resolve_device(device)
         self.nodes = [Node(node_id=i) for i in range(n_nodes)]
         self.column_families: dict[str, ColumnFamily] = {}
@@ -317,6 +457,9 @@ class HREngine:
         # auto-checkpoint trigger: collapse the commit log after a flush
         # once more than this many records accumulated (0 disables)
         self.commitlog_checkpoint_records = commitlog_checkpoint_records
+        self.failure_detector = failure_detector
+        self._scan_timer = scan_timer if scan_timer is not None else time.perf_counter
+        self.read_retry_limit = read_retry_limit
         self.metrics = MetricsRegistry()
         for _name in ENGINE_COUNTERS:
             self.metrics.counter(_name)
@@ -331,6 +474,17 @@ class HREngine:
         self._view_boundary_rows = self.metrics.counter("view_boundary_rows")
         self._view_rebuilds = self.metrics.counter("view_rebuilds")
         self._empty_partition_skips = self.metrics.counter("empty_partition_skips")
+        self._hints_queued = self.metrics.counter("hints_queued")
+        self._hint_replays = self.metrics.counter("hint_replays")
+        self._hint_rows_replayed = self.metrics.counter("hint_rows_replayed")
+        self._hint_fallbacks = self.metrics.counter("hint_fallbacks")
+        self._digest_mismatches = self.metrics.counter("digest_mismatches")
+        self._read_repairs = self.metrics.counter("read_repairs")
+        self._read_retries = self.metrics.counter("read_retries")
+        self._scrub_checks = self.metrics.counter("scrub_checks")
+        self._scrub_repairs = self.metrics.counter("scrub_repairs")
+        self._read_faults = self.metrics.counter("read_faults")
+        self._flush_faults = self.metrics.counter("flush_faults")
 
     # -- stats and result cache ----------------------------------------------
 
@@ -338,7 +492,7 @@ class HREngine:
     def stats(self) -> dict:
         """Operational counters (a read-through view of :attr:`metrics`)
         plus structural keys computed live: log records and rows, staged
-        rows and result-cache occupancy."""
+        rows, open hints and result-cache occupancy."""
         parts = [p for cf in self.column_families.values() for p in cf.partitions]
         out = {name: int(self.metrics.value(name)) for name in ENGINE_COUNTERS}
         out["flush_wall_seconds"] = self._flush_wall.value
@@ -349,6 +503,7 @@ class HREngine:
             commitlog_records=sum(len(p.commitlog) for p in parts),
             commitlog_rows=sum(p.commitlog.n_rows for p in parts),
             staged_rows=sum(mt.n_staged for p in parts for mt in p.memtables.values()),
+            hints_open=sum(len(p.hints) for p in parts),
         )
         return out
 
@@ -391,9 +546,18 @@ class HREngine:
         cache[key] = result
         self._cache_sel_bytes[map_key] = total + nb
 
-    def _invalidate_result_cache(self, cf_name: str, replica_id: int) -> None:
-        self._result_cache.pop((cf_name, replica_id), None)
-        self._cache_sel_bytes.pop((cf_name, replica_id), None)
+    def _invalidate_result_cache(
+        self, cf_name: str, node_id: int | None = None, replica_id: int | None = None,
+    ) -> None:
+        """Drop the cached results of ``cf_name``'s replicas, of those on
+        ``node_id`` and/or of ``replica_id`` when given."""
+        for r in self.column_families[cf_name].replicas:
+            if node_id is not None and r.node_id != node_id:
+                continue
+            if replica_id is not None and r.replica_id != replica_id:
+                continue
+            self._result_cache.pop((cf_name, r.replica_id), None)
+            self._cache_sel_bytes.pop((cf_name, r.replica_id), None)
 
     # -- Replica Generator ---------------------------------------------------
 
@@ -613,11 +777,16 @@ class HREngine:
         return self.nodes[r.node_id].tables[(cf.name, r.replica_id)]
 
     def _ranked_replicas(self, cf: ColumnFamily, query: Query) -> list[_Ranked]:
-        """Replicas ranked by estimated cost (Eq 2–3), with a view-eligible
-        aggregate's row estimate capped at ``VIEW_ROWS_CAP`` on a views
-        column family."""
+        """Replicas on live nodes ranked by estimated cost (Eq 2–3), with a
+        view-eligible aggregate's row estimate capped at ``VIEW_ROWS_CAP``
+        on a views column family, multiplied by the failure detector's
+        per-node cost factor when one is attached (suspected nodes are
+        down-ranked, not excluded)."""
+        det = self.failure_detector
         ranked: list[_Ranked] = []
         for r in cf.replicas:
+            if not self.nodes[r.node_id].alive:
+                continue
             rows = estimate_rows(cf.stats, r.layout, query)
             cost = cf.cost_model.cost_fn(len(r.layout))(rows)
             if cf.views and query.agg in VIEW_AGGS and query_view_eligible(query, r.layout):
@@ -626,20 +795,31 @@ class HREngine:
                 # its row estimate is capped — a view hit beats a full
                 # scan regardless of selectivity
                 cost = cf.cost_model.cost_fn(len(r.layout))(min(rows, float(VIEW_ROWS_CAP)))
+            if det is not None:
+                cost *= det.cost_factor(r.node_id)
             ranked.append((cost, rows, r))
+        if not ranked:
+            raise RuntimeError(f"no live replica for {cf.name!r}")
         ranked.sort(key=lambda t: t[0])
         return ranked
 
+    def _live_cost_factors(self, live: list[ReplicaHandle]) -> np.ndarray | None:
+        """Per-live-replica detector cost factors (None when no detector is
+        attached: the cost matrices then stay those of a detector-free
+        engine)."""
+        det = self.failure_detector
+        if det is None:
+            return None
+        return np.array([det.cost_factor(r.node_id) for r in live], dtype=np.float64)
+
     @staticmethod
-    def _check_read_options(consistency: str, hedge: bool) -> None:
+    def _check_read_options(consistency: str, deadline_s) -> None:
         if consistency not in CONSISTENCY_LEVELS:
             raise ValueError(
                 f"unknown consistency {consistency!r} (expected one of {CONSISTENCY_LEVELS})"
             )
-        if consistency != ONE:
-            raise _not_in_slice(f"consistency={consistency}", "Queue 1 item 4")
-        if hedge:
-            raise _not_in_slice("hedge=True", "Queue 1 item 4")
+        if deadline_s is not None:
+            raise _not_in_slice("deadline_s (read deadlines)", "Queue 1 item 5")
 
     def read(
         self,
@@ -647,19 +827,28 @@ class HREngine:
         query: Query,
         *,
         hedge: bool = False,
+        hedge_ratio: float = 2.0,
         consistency: str = ONE,
+        deadline_s: float | None = None,
         trace=None,
     ) -> tuple[ScanResult, ReadReport]:
-        """Route to the cheapest replica; ties broken round-robin.
+        """Route to the cheapest live replica; ties broken round-robin.
         Same costs, tie rule and round-robin counter as ``read_many``, so
         routing is identical to ``read_many`` at Q = 1; a partitioned
-        column family goes through ``read_many`` at Q = 1. ``trace`` (an
-        open span, or None) hangs an ``engine.read`` subtree under the
-        caller's."""
-        self._check_read_options(consistency, hedge)
+        column family, and consistency above ONE, go through ``read_many``
+        at Q = 1. A scan that raises a :class:`TransientFault` fails over
+        to the next-ranked untried replica. With ``hedge=True`` a read that
+        landed on a straggler (slowdown > ``hedge_ratio``) is duplicated on
+        the cheapest replica on another node, and the faster copy wins.
+        ``trace`` (an open span, or None) hangs an ``engine.read`` subtree
+        under the caller's."""
+        self._check_read_options(consistency, deadline_s)
         cf = self.column_families[cf_name]
-        if cf.ring.n_partitions > 1:
-            return self.read_many(cf_name, [query], trace=trace)[0]
+        if cf.ring.n_partitions > 1 or consistency != ONE:
+            return self.read_many(
+                cf_name, [query], hedge=hedge, hedge_ratio=hedge_ratio,
+                consistency=consistency, trace=trace,
+            )[0]
         span = (
             trace.child("engine.read", cf=cf_name, level=consistency)
             if trace is not None
@@ -670,24 +859,67 @@ class HREngine:
             best_cost = ranked[0][0]
             ties = [t for t in ranked if t[0] <= _tie_threshold(best_cost)]
             entry = ties[next(cf.rr_counter) % len(ties)]
-            return self._execute_scalar(cf, entry, query, trace=span)
+            # the failover of _run_groups: a transient fault advances to the
+            # next-ranked untried replica, bounded by the live count (or
+            # read_retry_limit)
+            limit = len(ranked) if self.read_retry_limit is None else self.read_retry_limit
+            tried: set[int] = set()
+            while True:
+                tried.add(entry[2].replica_id)
+                try:
+                    result, report = self._execute_scalar(
+                        cf, entry, query, hedged=False, trace=span,
+                        retry=bool(tried - {entry[2].replica_id}),
+                    )
+                    break
+                except TransientFault:
+                    self._read_retries.inc()
+                    entry = next((t for t in ranked if t[2].replica_id not in tried), None)
+                    if entry is None or len(tried) >= limit:
+                        raise RuntimeError(
+                            f"no live replica answered query 0 of {cf.name!r} "
+                            f"after {len(tried)} attempts"
+                        ) from None
+            if (
+                hedge
+                and len(ranked) > 1
+                and self.nodes[report.node_id].slowdown > hedge_ratio
+            ):
+                alt = next((t for t in ranked if t[2].node_id != report.node_id), None)
+                if alt is not None:
+                    try:
+                        r2, rep2 = self._execute_scalar(cf, alt, query, hedged=True, trace=span)
+                    except TransientFault:
+                        pass  # a best-effort duplicate; the primary stands
+                    else:
+                        # ties go to the hedge (cache hits serve at zero wall)
+                        if rep2.wall_seconds <= report.wall_seconds:
+                            return r2, rep2
+            return result, report
         finally:
             if span is not None:
                 span.end()
 
     def _execute_scalar(
-        self, cf: ColumnFamily, entry: _Ranked, query: Query, *, trace=None,
+        self, cf: ColumnFamily, entry: _Ranked, query: Query, *,
+        hedged: bool, trace=None, retry: bool = False,
     ) -> tuple[ScanResult, ReadReport]:
         """Execute one query on one replica through ``_scan_with_cache``."""
         est_cost, est_rows, r = entry
         g = (
             trace.child(
                 "engine.group_scan", replica=r.replica_id, node=r.node_id, queries=1,
+                hedged=hedged, retry=retry,
             )
             if trace is not None
             else None
         )
-        scans, walls = self._scan_with_cache(cf, r, [query], trace=g)
+        try:
+            scans, walls = self._scan_with_cache(cf, r, [query], trace=g)
+        except TransientFault as e:
+            if g is not None:
+                g.end(error=type(e).__name__)
+            raise
         if g is not None:
             g.end(rows=int(scans[0].rows_scanned))
         return scans[0], ReadReport(
@@ -697,6 +929,7 @@ class HREngine:
             estimated_cost=est_cost,
             wall_seconds=walls[0],
             rows_scanned=scans[0].rows_scanned,
+            hedged=hedged,
         )
 
     def read_many(
@@ -705,15 +938,22 @@ class HREngine:
         queries: Sequence[Query],
         *,
         hedge: bool = False,
+        hedge_ratio: float = 2.0,
         consistency: str = ONE,
+        deadline_s: float | None = None,
         trace=None,
     ) -> list[tuple[ScanResult, ReadReport]]:
         """Batched ``read``: one scheduler pass and one grouped scan per
         chosen replica (per partition and chosen replica on a partitioned
-        column family, :meth:`_read_many_partitioned`). Returns per-query
-        ``(ScanResult, ReadReport)`` in batch order; results and routing
-        are identical to calling ``read`` on each query in sequence."""
-        self._check_read_options(consistency, hedge)
+        column family, :meth:`_read_many_partitioned`), with bounded
+        failover onto the next-ranked replica when a group's scan raises a
+        transient fault. Returns per-query ``(ScanResult, ReadReport)`` in
+        batch order; results and routing are identical to calling ``read``
+        on each query in sequence. ``hedge`` duplicates straggler-bound
+        queries (:meth:`_hedge_groups`); ``consistency="QUORUM"``/``"ALL"``
+        adds digest reads with read repair (:meth:`_consistency_pass`), and
+        the returned result is always the digest-majority answer."""
+        self._check_read_options(consistency, deadline_s)
         cf = self.column_families[cf_name]
         queries = list(queries)
         if not queries:
@@ -727,27 +967,32 @@ class HREngine:
         )
         try:
             if cf.ring.n_partitions > 1:
-                return self._read_many_partitioned(cf, queries, trace=span)
-            replicas = cf.replicas
+                return self._read_many_partitioned(
+                    cf, queries, hedge=hedge, hedge_ratio=hedge_ratio,
+                    consistency=consistency, trace=span,
+                )
+            live = [r for r in cf.replicas if self.nodes[r.node_id].alive]
+            if not live:
+                raise RuntimeError(f"no live replica for {cf_name!r}")
             n_q = len(queries)
             # vectorized Cost Evaluator: Eq (1)-(2) over all (replica,
             # query); per-column selectivities are extracted once
             plan = span.child("engine.plan") if span is not None else None
             pre = precompute_query_stats(cf.stats, queries, cf.key_names)
             rows_mat = np.stack(
-                [estimate_rows_many(cf.stats, r.layout, queries, pre) for r in replicas]
+                [estimate_rows_many(cf.stats, r.layout, queries, pre) for r in live]
             )
             cost_mat = np.stack(
                 [
                     cf.cost_model.cost_fn(len(r.layout)).many(rows_mat[k])
-                    for k, r in enumerate(replicas)
+                    for k, r in enumerate(live)
                 ]
             )
             # view term: cap eligible (replica, query) row estimates. The
             # any() guard doubles as the all-select fast path — a batch
             # with no sum/count never walks the eligibility arrays
             if cf.views and any(q.agg in VIEW_AGGS for q in queries):
-                elig = view_eligible_matrix([r.layout for r in replicas], queries)
+                elig = view_eligible_matrix([r.layout for r in live], queries)
                 if elig.any():
                     capped = np.minimum(rows_mat, float(VIEW_ROWS_CAP))
                     cost_mat = np.where(
@@ -755,34 +1000,111 @@ class HREngine:
                         np.stack(
                             [
                                 cf.cost_model.cost_fn(len(r.layout)).many(capped[k])
-                                for k, r in enumerate(replicas)
+                                for k, r in enumerate(live)
                             ]
                         ),
                         cost_mat,
                     )
-            picks = _schedule_picks(cost_mat, cf.rr_counter)
+            factors = self._live_cost_factors(live)
+            if factors is not None:
+                cost_mat = cost_mat * factors[:, None]
+            order_mat, picks = _schedule_picks(cost_mat, cf.rr_counter)
             if plan is not None:
-                plan.end(replicas=len(replicas))
+                plan.end(replicas=len(live))
+            all_q = list(range(n_q))
             results: list[ScanResult | None] = [None] * n_q
             reports: list[ReadReport | None] = [None] * n_q
-            for k, sub in _group_by_pick(picks, range(n_q)).items():
-                self._execute_group(
-                    cf, replicas[k], sub, queries, rows_mat[k], cost_mat[k], results, reports,
-                    trace=span,
+            self._run_groups(
+                cf, live, order_mat, picks, all_q, queries, rows_mat, cost_mat,
+                results, reports, trace=span,
+            )
+            if hedge and len(live) > 1:
+                # duplicate straggler-bound queries onto the cheapest replica
+                # on another node; a faulting hedge is dropped, never failed
+                # over (the primary result stands)
+                for k, qidx in self._hedge_groups(live, order_mat, picks, all_q, hedge_ratio).items():
+                    try:
+                        self._execute_group(
+                            cf, live[k], qidx, queries, rows_mat[k], cost_mat[k],
+                            results, reports, hedged=True, trace=span,
+                        )
+                    except TransientFault:
+                        continue
+            if consistency != ONE:
+                self._consistency_pass(
+                    cf, cf.partitions[0], live, order_mat, all_q, queries, results, reports,
+                    consistency, trace=span,
                 )
             return list(zip(results, reports))  # type: ignore[arg-type]
         finally:
             if span is not None:
                 span.end()
 
+    def _run_groups(
+        self,
+        cf: ColumnFamily,
+        live: list[ReplicaHandle],
+        order: np.ndarray,
+        picks: np.ndarray,
+        qidx: list[int],
+        queries: list[Query],
+        rows_live: np.ndarray,
+        cost_live: np.ndarray,
+        results: list,
+        reports: list,
+        *,
+        trace=None,
+    ) -> None:
+        """Primary grouped execution with bounded failover: the queries of
+        a group that raises a :class:`TransientFault` advance to the next
+        replica in their cost order not yet tried (``read_retries`` counts
+        each re-routed query), up to ``read_retry_limit`` attempts per query
+        (default: one per live replica). Scheduler column ``j`` of
+        ``order`` is global query ``qidx[j]``."""
+        col_of = {qi: j for j, qi in enumerate(qidx)}
+        limit = len(live) if self.read_retry_limit is None else self.read_retry_limit
+        tried: dict[int, set[int]] = {qi: set() for qi in qidx}
+        queue = [(k, sub, False) for k, sub in _group_by_pick(picks, qidx).items()]
+        while queue:
+            k, sub, is_retry = queue.pop(0)
+            for qi in sub:
+                tried[qi].add(k)
+            try:
+                self._execute_group(
+                    cf, live[k], sub, queries, rows_live[k], cost_live[k], results, reports,
+                    hedged=False, trace=trace, retry=is_retry,
+                )
+            except TransientFault:
+                self._read_retries.inc(len(sub))
+                retry: dict[int, list[int]] = {}
+                for qi in sub:
+                    nxt = (
+                        next(
+                            (int(x) for x in order[:, col_of[qi]] if int(x) not in tried[qi]),
+                            None,
+                        )
+                        if len(tried[qi]) < limit
+                        else None
+                    )
+                    if nxt is None:
+                        raise RuntimeError(
+                            f"no live replica answered query {qi} of "
+                            f"{cf.name!r} after {len(tried[qi])} attempts"
+                        )
+                    retry.setdefault(nxt, []).append(qi)
+                queue.extend((k2, sub2, True) for k2, sub2 in retry.items())
+
     def _scan_with_cache(
         self, cf: ColumnFamily, r: ReplicaHandle, group: list[Query], *, trace=None,
     ) -> tuple[list[ScanResult], list[float]]:
         """Core scan for one replica's query group: read-barrier flush,
-        result cache (when enabled), one ``execute_many`` for the misses.
-        Returns per-query ``(scans, walls)`` aligned with ``group``; cache
-        hits carry zero attributed wall."""
-        self._ensure_flushed(cf, r, trace=trace)
+        injected-fault check, result cache (when enabled), one
+        ``execute_many`` for the misses, failure-detector feed. Returns
+        per-query ``(scans, walls)`` aligned with ``group``; cache hits
+        carry zero attributed wall. Raises :class:`TransientReadError` /
+        :class:`TransientFlushError` before producing any result, so a
+        faulting group is retried whole."""
+        self._ensure_flushed(cf, r, trace=trace)  # may raise TransientFlushError
         table = self._table(cf, r)
         cp = trace.child("engine.cache_probe") if trace is not None else None
         cache = ckeys = None
@@ -793,24 +1115,35 @@ class HREngine:
         miss_j = [j for j in range(len(group)) if j not in hit_j]
         if cp is not None:
             cp.end(hits=len(hit_j), misses=len(miss_j))
+        node = self.nodes[r.node_id]
+        if miss_j and node.read_fault_budget > 0:
+            node.read_fault_budget -= 1
+            if self.failure_detector is not None:
+                self.failure_detector.record_failure(node.node_id)
+            self._read_faults.inc()
+            raise TransientReadError(node.node_id)
         sc = (
             trace.child("engine.scan", queries=len(miss_j))
             if trace is not None and miss_j
             else None
         )
         vstats = {"hits": 0, "boundary_rows": 0} if cf.views else None
-        t0 = time.perf_counter()
+        t0 = self._scan_timer()
         miss_scans = (
             table.execute_many([group[j] for j in miss_j], trace=sc, view_stats=vstats)
             if miss_j
             else []
         )
-        wall = time.perf_counter() - t0
+        wall = (self._scan_timer() - t0) * node.slowdown
         if sc is not None:
             sc.end(rows=int(sum(s.rows_scanned for s in miss_scans)))
         if vstats is not None and vstats["hits"]:
             self._view_hits.inc(vstats["hits"])
             self._view_boundary_rows.inc(vstats["boundary_rows"])
+        if miss_j and self.failure_detector is not None:
+            # one latency sample per executed group; cache hits are not
+            # operations the node performed
+            self.failure_detector.record(node.node_id, wall)
         per_q_wall = wall / len(miss_j) if miss_j else 0.0
         scans: list[ScanResult | None] = [None] * len(group)
         walls = [0.0] * len(group)
@@ -839,24 +1172,36 @@ class HREngine:
         results: list,
         reports: list,
         *,
+        hedged: bool,
         trace=None,
+        retry: bool = False,
     ) -> None:
         """Run one replica's query group via ``_scan_with_cache``; the
-        measured wall is split evenly across the queries that executed —
-        cache hits are served at zero attributed wall."""
+        measured wall (× node slowdown) is split evenly across the queries
+        that executed — cache hits are served at zero attributed wall. A
+        hedged run replaces a query's primary result only when at least as
+        fast (ties go to the hedge)."""
         group = [queries[i] for i in qidx]
         g = (
             trace.child(
                 "engine.group_scan", replica=r.replica_id, node=r.node_id, queries=len(qidx),
+                hedged=hedged, retry=retry,
             )
             if trace is not None
             else None
         )
-        scans, walls = self._scan_with_cache(cf, r, group, trace=g)
+        try:
+            scans, walls = self._scan_with_cache(cf, r, group, trace=g)
+        except TransientFault as e:
+            if g is not None:
+                g.end(error=type(e).__name__)
+            raise
         if g is not None:
             g.end(rows=int(sum(sr.rows_scanned for sr in scans)))
         for j, i in enumerate(qidx):
             sr = scans[j]
+            if hedged and not (reports[i] is None or walls[j] <= reports[i].wall_seconds):
+                continue
             results[i] = sr
             reports[i] = ReadReport(
                 replica_id=r.replica_id,
@@ -865,7 +1210,187 @@ class HREngine:
                 estimated_cost=float(est_costs[i]),
                 wall_seconds=walls[j],
                 rows_scanned=sr.rows_scanned,
+                hedged=hedged,
             )
+
+    # -- tunable consistency (digest reads and read repair) --------------------
+
+    @staticmethod
+    def _consistency_k(consistency: str, rf: int) -> int:
+        """Replicas that must answer at a consistency level (read k)."""
+        if consistency == ONE:
+            return 1
+        if consistency == QUORUM:
+            return rf // 2 + 1
+        if consistency == ALL:
+            return rf
+        raise ValueError(
+            f"unknown consistency {consistency!r} (expected one of {CONSISTENCY_LEVELS})"
+        )
+
+    def _consistency_pass(
+        self,
+        cf: ColumnFamily,
+        part: Partition,
+        live: list[ReplicaHandle],
+        order: np.ndarray,
+        qidx: list[int],
+        queries: list[Query],
+        results: list,
+        reports: list,
+        consistency: str,
+        *,
+        trace=None,
+    ) -> None:
+        """Digest reads: execute each query on the next cost-ranked replicas
+        until k distinct replicas (the primary included) answered, compare
+        the layout-independent digests, and on a mismatch repair divergent
+        replicas from the partition log. The majority digest wins (the
+        result is re-pointed at a majority replica when the primary was the
+        outlier); with no majority, the log is the ground truth: every
+        consulted replica is rebuilt and the query re-executes on the
+        primary."""
+        k = self._consistency_k(consistency, len(part.replicas))
+        if k <= 1:
+            return
+        if len(live) < k:
+            raise RuntimeError(
+                f"consistency {consistency} needs {k} live replicas of "
+                f"partition {part.partition_id} of {cf.name!r}, have {len(live)}"
+            )
+        dg = trace.child("engine.digest", level=consistency, k=k) if trace is not None else None
+        col_of = {qi: j for j, qi in enumerate(qidx)}
+        row_of_rid = {r.replica_id: i for i, r in enumerate(live)}
+        # alternates: per query the k-1 cheapest ranked replicas other than
+        # the one that served the primary (a hedge may have moved it)
+        consulted: dict[int, set[int]] = {}
+        alt_groups: dict[int, list[int]] = {}
+        for j, qi in enumerate(qidx):
+            primary_row = row_of_rid.get(reports[qi].replica_id)
+            consulted[qi] = {primary_row} if primary_row is not None else set()
+            chosen: list[int] = []
+            for x in order[:, j]:
+                x = int(x)
+                if x in consulted[qi]:
+                    continue
+                chosen.append(x)
+                if len(chosen) >= k - 1:
+                    break
+            for x in chosen:
+                alt_groups.setdefault(x, []).append(qi)
+        # the digest reads, failing over like the primary pass
+        alt_scans: dict[int, list[tuple[ReplicaHandle, ScanResult]]] = {}
+        queue = list(alt_groups.items())
+        while queue:
+            x, sub = queue.pop(0)
+            for qi in sub:
+                consulted[qi].add(x)
+            try:
+                scans, _walls = self._scan_with_cache(
+                    cf, live[x], [queries[qi] for qi in sub], trace=dg
+                )
+            except TransientFault:
+                self._read_retries.inc(len(sub))
+                retry: dict[int, list[int]] = {}
+                for qi in sub:
+                    nxt = next(
+                        (int(y) for y in order[:, col_of[qi]] if int(y) not in consulted[qi]),
+                        None,
+                    )
+                    if nxt is None:
+                        raise RuntimeError(
+                            f"consistency {consistency}: fewer than {k} live "
+                            f"replicas answered for {cf.name!r}"
+                        )
+                    retry.setdefault(nxt, []).append(qi)
+                queue.extend(retry.items())
+                continue
+            for qi, sr in zip(sub, scans):
+                alt_scans.setdefault(qi, []).append((live[x], sr))
+
+        repaired: set[int] = set()  # replica ids healed earlier in this pass
+
+        def _fresh(h: ReplicaHandle, qi: int, sr: ScanResult) -> ScanResult:
+            # a scan taken before this pass repaired its replica is stale
+            # evidence: re-read (the repair invalidated the cache)
+            if h.replica_id not in repaired:
+                return sr
+            return self._scan_with_cache(cf, h, [queries[qi]], trace=dg)[0][0]
+
+        def _repair(h: ReplicaHandle) -> None:
+            rp = dg.child("engine.read_repair", replica=h.replica_id) if dg is not None else None
+            self._repair_replica(cf, part, h)
+            repaired.add(h.replica_id)
+            self._read_repairs.inc()
+            if rp is not None:
+                rp.end()
+
+        handle_of_rid = {r.replica_id: r for r in part.replicas}
+        for qi in qidx:
+            alts = alt_scans.get(qi)
+            if not alts:
+                continue
+            prim = handle_of_rid[reports[qi].replica_id]
+            entries = [(prim, _fresh(prim, qi, results[qi]))] + [
+                (h, _fresh(h, qi, sr)) for h, sr in alts
+            ]
+            digs = [
+                _result_digest(sr, self._table(cf, h), cf.key_names, cf.schema)
+                for h, sr in entries
+            ]
+            if len(set(digs)) == 1:
+                if entries[0][1] is not results[qi]:
+                    results[qi] = entries[0][1]  # refreshed primary
+                continue
+            self._digest_mismatches.inc()
+            counts: dict[int, int] = {}
+            for d in digs:
+                counts[d] = counts.get(d, 0) + 1
+            best_d, best_n = max(counts.items(), key=lambda t: t[1])
+            if best_n * 2 > len(digs):
+                # majority wins: heal the minority from the log and answer
+                # from a majority replica
+                for (h, _sr), d in zip(entries, digs):
+                    if d != best_d:
+                        _repair(h)
+                win, win_scan = next(e for e, d in zip(entries, digs) if d == best_d)
+                results[qi] = win_scan
+                reports[qi] = dataclasses.replace(
+                    reports[qi], replica_id=win.replica_id, node_id=win.node_id,
+                    rows_scanned=win_scan.rows_scanned,
+                )
+            else:
+                # no majority: rebuild every consulted replica from the log
+                # (the ground truth) and re-execute on the primary
+                for h, _sr in entries:
+                    _repair(h)
+                scan = self._scan_with_cache(cf, prim, [queries[qi]], trace=dg)[0][0]
+                results[qi] = scan
+                reports[qi] = dataclasses.replace(reports[qi], rows_scanned=scan.rows_scanned)
+        if dg is not None:
+            dg.end()
+
+    def _hedge_groups(
+        self,
+        live: list[ReplicaHandle],
+        order: np.ndarray,
+        picks: np.ndarray,
+        qidx: list[int],
+        hedge_ratio: float,
+    ) -> dict[int, list[int]]:
+        """Queries whose picked node is a straggler (slowdown >
+        ``hedge_ratio``), grouped by the cheapest replica on another node —
+        the alternate a scalar ``read`` hedges to. Shared by both planners;
+        ``qidx[j]`` is the global query index of scheduler column ``j``."""
+        groups: dict[int, list[int]] = {}
+        for j, qi in enumerate(qidx):
+            pick_node = live[int(picks[j])].node_id
+            if self.nodes[pick_node].slowdown <= hedge_ratio:
+                continue
+            alt = next((int(k) for k in order[:, j] if live[int(k)].node_id != pick_node), -1)
+            if alt >= 0:
+                groups.setdefault(alt, []).append(qi)
+        return groups
 
     # -- scatter-gather over the token ring ------------------------------------
 
@@ -879,7 +1404,14 @@ class HREngine:
         return offsets
 
     def _read_many_partitioned(
-        self, cf: ColumnFamily, queries: list[Query], *, trace=None,
+        self,
+        cf: ColumnFamily,
+        queries: list[Query],
+        *,
+        hedge: bool = False,
+        hedge_ratio: float = 2.0,
+        consistency: str = ONE,
+        trace=None,
     ) -> list[tuple[ScanResult, ReadReport]]:
         """Scatter-gather ``read_many`` over a partitioned column family.
 
@@ -894,12 +1426,15 @@ class HREngine:
         (with the view cap on a views column family), the round-robin
         tie-break draws from the partition's own counter (one draw per
         query in batch order), and each ``(partition, replica)`` group
-        runs through ``_execute_group``.
+        runs through ``_run_groups`` over the partition's live replicas
+        (failover as at one partition), then the partition's hedge and
+        digest passes.
 
         **Gather** (host): per query, the partials merge in ring order
         (``merge_partial_scans``): sums and counts add, select indices
         shift by their partition's row offset. The report carries the
-        first executing partition's routing and the summed wall; a query
+        first executing partition's routing, the summed wall and whether
+        any partition's answer came from a hedge; a query
         whose partitions were all skipped gets an empty result and a
         placeholder report (``replica_id == node_id == -1``).
         """
@@ -917,12 +1452,16 @@ class HREngine:
         if sc is not None:
             sc.end(partitions=len(touched))
 
+        rf = cf.replication_factor
         n_slots = len(cf.slot_layouts)
         partials: dict[int, tuple[list, list]] = {}
         for pid in sorted(touched):
             ps = trace.child("engine.partition", partition=pid) if trace is not None else None
             part = cf.partitions[pid]
             qidx = touched[pid]
+            live = [r for r in part.replicas if self.nodes[r.node_id].alive]
+            if not live:
+                raise RuntimeError(f"no live replica for partition {pid} of {cf.name!r}")
             group = [queries[i] for i in qidx]
             rows_sub, cost_sub = cf.cost_model.rank_matrices(cf.slot_layouts, group, stats=part.stats)
             # view term: the single-partition planner's cap, per (slot
@@ -941,19 +1480,40 @@ class HREngine:
                         ),
                         cost_sub,
                     )
-            picks = _schedule_picks(cost_sub, part.rr_counter)
             # estimates at full batch width: _execute_group indexes them by
             # global query index
             rows_mat = np.zeros((n_slots, n_q))
             cost_mat = np.zeros((n_slots, n_q))
             rows_mat[:, qidx] = rows_sub
             cost_mat[:, qidx] = cost_sub
+            slots = np.asarray([r.replica_id - part.vnode_id * rf for r in live])
+            factors = self._live_cost_factors(live)
+            if factors is not None:
+                # penalize suspected nodes' rows in place, so ranking,
+                # failover order and the reported cost agree
+                for k, s in enumerate(slots):
+                    cost_mat[s] *= factors[k]
+            order, picks = _schedule_picks(cost_mat[slots][:, qidx], part.rr_counter)
             res_p: list[ScanResult | None] = [None] * n_q
             rep_p: list[ReadReport | None] = [None] * n_q
-            for k, sub in _group_by_pick(picks, qidx).items():
-                self._execute_group(
-                    cf, part.replicas[k], sub, queries, rows_mat[k], cost_mat[k], res_p, rep_p,
-                    trace=ps,
+            rows_live = rows_mat[slots]
+            cost_live = cost_mat[slots]
+            self._run_groups(
+                cf, live, order, picks, qidx, queries, rows_live, cost_live, res_p, rep_p,
+                trace=ps,
+            )
+            if hedge and len(live) > 1:
+                for k, sub in self._hedge_groups(live, order, picks, qidx, hedge_ratio).items():
+                    try:
+                        self._execute_group(
+                            cf, live[k], sub, queries, rows_live[k], cost_live[k], res_p, rep_p,
+                            hedged=True, trace=ps,
+                        )
+                    except TransientFault:
+                        continue  # a best-effort duplicate
+            if consistency != ONE:
+                self._consistency_pass(
+                    cf, part, live, order, qidx, queries, res_p, rep_p, consistency, trace=ps,
                 )
             if ps is not None:
                 ps.end()
@@ -991,6 +1551,7 @@ class HREngine:
                     estimated_cost=first.estimated_cost,
                     wall_seconds=sum(r.wall_seconds for r in reps),
                     rows_scanned=merged.rows_scanned,
+                    hedged=any(r.hedged for r in reps),
                 ),
             ))
         if ga is not None:
@@ -1019,7 +1580,7 @@ class HREngine:
     ) -> float:
         """Commit a batch write through the durable path and refresh
         stats; returns wall seconds. The batch is (1) appended to the
-        column family's commit log, (2) staged into each replica's
+        column family's commit log, (2) staged into each live replica's
         memtable, and (3) flushed as one sorted run per replica when the
         staging threshold is reached (``memtable_rows``; 0 =
         write-through). On a device-resident column family the statistics
@@ -1034,10 +1595,15 @@ class HREngine:
         family), each owning partition's sub-batch becomes one record in
         that partition's commit log, stages into that partition's
         replicas only and merges into that partition's statistics. The
-        threshold check spans every replica of the column family. The
+        threshold check spans every live replica of the column family. The
         reference's post-flush rebalance trigger (its
         ``rebalance_imbalance``, off by default) comes with ``rebalance``
-        (ROADMAP.md Queue 1 item 4); until then it stays off here."""
+        (ROADMAP.md Queue 1 item 4b); until then it stays off here.
+
+        A replica on a down node neither stages nor flushes: the log holds
+        the rows it missed, and a write while its hint is open counts under
+        ``hints_queued`` (the hint is an LSN watermark into that log, never
+        a copy)."""
         cf = self.column_families[cf_name]
         t0 = time.perf_counter()
         w = (
@@ -1081,7 +1647,10 @@ class HREngine:
         # every memtable stages them by reference — one copy per write
         for (part, sub), rec in zip(routed, recs):
             for r in part.replicas:
-                part.memtables[r.replica_id].stage(rec.key_cols, rec.value_cols, copy=False)
+                if self.nodes[r.node_id].alive:
+                    part.memtables[r.replica_id].stage(rec.key_cols, rec.value_cols, copy=False)
+                elif r.replica_id in part.hints:
+                    self._hints_queued.inc()
             if sub is not None:
                 part.observe_tokens(sub[2])
             if part.stats is not None:
@@ -1090,10 +1659,11 @@ class HREngine:
         cf.stats.merge_rows(key_cols, device=device)
         if ms is not None:
             ms.end()
+        live = [r for r in cf.replicas if self.nodes[r.node_id].alive]
         if cf.memtable_rows <= 0 or any(
-            self._memtable(cf, r).n_staged >= cf.memtable_rows for r in cf.replicas
+            self._memtable(cf, r).n_staged >= cf.memtable_rows for r in live
         ):
-            self._flush_replicas(cf, cf.replicas, trace=w)
+            self._flush_replicas(cf, live, trace=w)
         if w is not None:
             w.end()
         return time.perf_counter() - t0
@@ -1106,11 +1676,13 @@ class HREngine:
         ``merge_run``, result cache invalidated, then the compaction
         policy applied to the merged table. A run that fails its checksum
         raises :class:`CorruptRunError` before it merges, and its rows
-        stay staged. On a views column family ``merge_run`` extends each
-        replica's view and compaction rebuilds it (``view_rebuilds``)."""
+        stay staged; so do those of a node whose ``flush_fault_budget``
+        makes the flush raise :class:`TransientFlushError`. On a views
+        column family ``merge_run`` extends each replica's view and
+        compaction rebuilds it (``view_rebuilds``)."""
         pending = [
             r for r in replicas
-            if self._memtable(cf, r).n_staged
+            if self.nodes[r.node_id].alive and self._memtable(cf, r).n_staged
         ]
         if not pending:
             return
@@ -1128,6 +1700,12 @@ class HREngine:
                 else None
             )
             try:
+                if node.flush_fault_budget > 0:
+                    node.flush_fault_budget -= 1
+                    if self.failure_detector is not None:
+                        self.failure_detector.record_failure(node.node_id)
+                    self._flush_faults.inc()
+                    raise TransientFlushError(node.node_id)
                 run = self._memtable(cf, r).peek_run()
                 if not run.verify():
                     self._corrupt_runs.inc()
@@ -1161,7 +1739,7 @@ class HREngine:
             part = cf.partitions[r.partition_id]
             # this replica's table now holds every log record below the tail
             part.flushed_lsn[r.replica_id] = part.commitlog.next_lsn
-            self._invalidate_result_cache(cf.name, r.replica_id)
+            self._invalidate_result_cache(cf.name, replica_id=r.replica_id)
             if part.compaction is not None:
                 tc = trace.tracer.now() if trace is not None else 0.0
                 if compact_table(merged, part.compaction):
@@ -1171,18 +1749,22 @@ class HREngine:
                         # compact_runs re-derived the per-block partials
                         # over the collapsed run stack (full rebuild)
                         self._view_rebuilds.inc()
-                    self._invalidate_result_cache(cf.name, r.replica_id)
+                    self._invalidate_result_cache(cf.name, replica_id=r.replica_id)
                     if trace is not None:
                         trace.child("engine.compaction", t=tc, replica=r.replica_id).end()
         # count-based auto-checkpoint of each flushed partition's log once
-        # every replica of that partition is drained
+        # every replica of that partition is drained; deferred while a hint
+        # is open (a checkpoint re-numbers the record the hint points into,
+        # which would force node_up onto the full-rebuild fallback)
         k = self.commitlog_checkpoint_records
         if k:
             for pid in sorted({r.partition_id for r in pending}):
                 part = cf.partitions[pid]
                 log = part.commitlog
-                if log.should_checkpoint(k) and not any(
-                    mt.n_staged for mt in part.memtables.values()
+                if (
+                    log.should_checkpoint(k)
+                    and not part.hints
+                    and not any(mt.n_staged for mt in part.memtables.values())
                 ):
                     log.checkpoint()
                     for rid in part.flushed_lsn:
@@ -1195,10 +1777,13 @@ class HREngine:
         ``table`` if absent (full rebuild from the resident tensors,
         counted under ``view_rebuilds``). Tables that already carry views
         (the incremental ``merge_run`` extension, or ``compact_runs``' own
-        rebuild) are left alone. A views column family is device-resident,
-        so ``table`` already is."""
+        rebuild) are left alone. Every site that installs a new replica
+        table (flush, recovery, hinted ``node_up``, read repair) passes
+        through here."""
         if not cf.views or table.has_views:
             return
+        if not table.device_resident:
+            table.place_on_device(self.device)
         table.build_views()
         self._view_rebuilds.inc()
 
@@ -1217,14 +1802,16 @@ class HREngine:
                 fb.end()
 
     def flush_memtables(self, cf_name: str) -> None:
-        """Drain every replica's memtable (group-commit flush)."""
+        """Drain every live replica's memtable (group-commit flush)."""
         cf = self.column_families[cf_name]
-        self._flush_replicas(cf, cf.replicas)
+        self._flush_replicas(cf, [r for r in cf.replicas if self.nodes[r.node_id].alive])
 
     def checkpoint_commitlog(self, cf_name: str) -> int:
-        """Flush every replica, then collapse each partition's commit log
-        into one snapshot record; returns the highest snapshot LSN (the
-        only one when ``partitions == 1``)."""
+        """Flush every live replica, then collapse each partition's commit
+        log into one snapshot record; returns the highest snapshot LSN (the
+        only one when ``partitions == 1``). Every flushed replica is
+        complete through the snapshot, so the watermarks advance past it;
+        an open hint's tail is gone, and its ``node_up`` rebuilds."""
         self.flush_memtables(cf_name)
         top = 0
         for part in self.column_families[cf_name].partitions:
@@ -1233,32 +1820,236 @@ class HREngine:
                 part.flushed_lsn[rid] = part.commitlog.next_lsn
         return top
 
-    # -- outside this slice ------------------------------------------------------
+    # -- node lifecycle and recovery -----------------------------------------------
+
+    def _check_node(self, node_id: int) -> Node:
+        if not 0 <= node_id < len(self.nodes):
+            raise ValueError(f"unknown node {node_id} (cluster has {len(self.nodes)})")
+        return self.nodes[node_id]
 
     def fail_node(self, node_id: int, *, transient: bool = False) -> None:
-        raise _not_in_slice("fail_node", "Queue 1 item 4")
+        """Take a node down. The default models node loss: the node's disk
+        (every partition replica it hosted, across all column families) and
+        memtables are gone; the partition commit logs are the durable copy
+        ``recover_node`` rebuilds from. ``transient=True`` models a short
+        outage: the replica tables survive, only the staged rows are lost
+        (they are log records already), and each hosted replica opens a
+        hint, its flushed-LSN watermark; ``node_up`` replays only the log
+        tail past it. Failing a node that is already down is a no-op (the
+        first failure's hints keep their older, still correct watermarks);
+        an out-of-range ``node_id`` raises ``ValueError``."""
+        node = self._check_node(node_id)
+        if not node.alive:
+            return
+        node.alive = False
+        for cf_name, cf in self.column_families.items():
+            for part in cf.partitions:
+                for r in part.replicas:
+                    if r.node_id != node_id:
+                        continue
+                    rid = r.replica_id
+                    if transient:
+                        part.hints[rid] = part.flushed_lsn.get(rid, 0)
+                    else:
+                        part.hints.pop(rid, None)
+                        part.flushed_lsn.pop(rid, None)
+                    # the memtable dies with its node either way; the commit
+                    # log is the durable copy every staged row replays from
+                    part.memtables[rid].clear()
+            self._invalidate_result_cache(cf_name, node_id=node_id)
+        if not transient:
+            node.tables = {}  # disk lost
+
+    def _rebuild_replica_table(
+        self, cf: ColumnFamily, part: Partition, r: ReplicaHandle, *, source: str = "log",
+    ) -> SortedTable:
+        """Rebuild one partition replica's whole table in its own layout:
+        replay the partition's commit log (``source="log"``, the ground
+        truth) or re-sort a live peer (``source="survivor"``). On a
+        device-resident column family the table is placed on the engine's
+        device and, on a views column family, its view built there."""
+        log = part.commitlog
+        if source == "log" and log is not None and len(log):
+            kc, vc = log.replay_columns()
+            rebuilt = SortedTable.from_columns(kc, vc, r.layout, cf.schema)
+        else:
+            survivor = next(
+                (
+                    s
+                    for s in part.replicas
+                    if s.replica_id != r.replica_id
+                    and self.nodes[s.node_id].alive
+                    and (cf.name, s.replica_id) in self.nodes[s.node_id].tables
+                ),
+                None,
+            )
+            if survivor is None:
+                raise RuntimeError(
+                    f"data loss: no survivor for {cf.name!r} partition "
+                    f"{part.partition_id} replica {r.replica_id}"
+                )
+            self._ensure_flushed(cf, survivor)  # its staged rows too
+            rebuilt = self._table(cf, survivor).resorted(r.layout)
+        if cf.device_resident:
+            rebuilt.place_on_device(self.device)
+        self._ensure_views(cf, rebuilt)
+        return rebuilt.seal_checksum()
+
+    def _install_rebuilt(
+        self, cf: ColumnFamily, part: Partition, r: ReplicaHandle, table: SortedTable,
+    ) -> None:
+        """Install a fully rebuilt replica table: a fresh memtable (a full
+        rebuild is flushed state), the hint discharged, the watermark at
+        the log's tail, stale cached results dropped."""
+        rid = r.replica_id
+        self.nodes[r.node_id].tables[(cf.name, rid)] = table
+        part.memtables[rid] = Memtable(r.layout, cf.schema, cf.key_names, cf.value_names)
+        part.hints.pop(rid, None)
+        part.flushed_lsn[rid] = part.commitlog.next_lsn
+        self._invalidate_result_cache(cf.name, replica_id=rid)
+
+    def _repair_replica(self, cf: ColumnFamily, part: Partition, r: ReplicaHandle) -> None:
+        """Heal one live replica in place from the partition log (read
+        repair, scrub); the caller counts the trigger."""
+        self._install_rebuilt(cf, part, r, self._rebuild_replica_table(cf, part, r))
 
     def node_up(self, node_id: int) -> float:
-        raise _not_in_slice("node_up", "Queue 1 item 4")
+        """Bring a transiently failed node back, healing each hosted
+        replica by hinted handoff: replay only the log tail past the hint
+        and merge it into the surviving table as one sorted run (on a
+        resident table the run is appended to the tensors and the view
+        extended). A replica whose partition committed nothing meanwhile
+        costs nothing. Falls back to a full rebuild, counted in
+        ``hint_fallbacks``, when the table is gone (a durable failure), the
+        hint predates a checkpoint (``CommitLog.can_replay_from``), or no
+        hint was opened. Returns wall seconds; a live node is a no-op
+        returning 0.0."""
+        node = self._check_node(node_id)
+        if node.alive:
+            return 0.0
+        t0 = time.perf_counter()
+        node.alive = True
+        for cf_name in self.column_families:
+            self._invalidate_result_cache(cf_name, node_id=node_id)
+        for cf in self.column_families.values():
+            for part in cf.partitions:
+                for r in part.replicas:
+                    if r.node_id != node_id:
+                        continue
+                    rid = r.replica_id
+                    log = part.commitlog
+                    table = node.tables.get((cf.name, rid))
+                    hint = part.hints.pop(rid, None)
+                    if table is None or hint is None or not log.can_replay_from(hint):
+                        self._hint_fallbacks.inc()
+                        self._install_rebuilt(cf, part, r, self._rebuild_replica_table(cf, part, r))
+                        continue
+                    kc, vc = log.replay_columns(start_lsn=hint)
+                    n_rows = next(iter(kc.values())).shape[0] if kc else 0
+                    if n_rows:
+                        run = sort_run(kc, vc, r.layout, cf.schema)
+                        merged = table.merge_run(run)
+                        if cf.device_resident and not merged.device_resident:
+                            merged.place_on_device(self.device)
+                        self._ensure_views(cf, merged)
+                        if table.stored_digest is not None:
+                            merged.stored_digest = combine_digests(table.stored_digest, run.digest)
+                        else:
+                            merged.seal_checksum()
+                        node.tables[(cf.name, rid)] = merged
+                        self._hint_replays.inc()
+                        self._hint_rows_replayed.inc(n_rows)
+                    # no missed rows: the surviving table is complete as is
+                    part.flushed_lsn[rid] = log.next_lsn
+                    part.memtables[rid] = Memtable(r.layout, cf.schema, cf.key_names, cf.value_names)
+        return time.perf_counter() - t0
 
     def recover_node(self, node_id: int, *, source: str = "log") -> float:
-        raise _not_in_slice("recover_node", "Queue 1 item 4")
+        """Rebuild every partition replica a down node hosted, each in its
+        own layout from its own partition (other partitions are not
+        touched): ``source="log"`` (default) replays the partition's commit
+        log — base rows and every committed write, the ones the node missed
+        included — and ``source="survivor"`` re-sorts a live peer. Both give
+        the same packed keys and key columns. Returns wall seconds; a live
+        node is a no-op returning 0.0 (use ``node_up`` after a transient
+        failure, ``scrub_column_family`` to audit)."""
+        if source not in ("log", "survivor"):
+            raise ValueError(f"unknown recovery source {source!r}")
+        node = self._check_node(node_id)
+        if node.alive:
+            return 0.0
+        t0 = time.perf_counter()
+        node.alive = True
+        for cf_name in self.column_families:
+            self._invalidate_result_cache(cf_name, node_id=node_id)
+        for cf in self.column_families.values():
+            for part in cf.partitions:
+                for r in part.replicas:
+                    if r.node_id == node_id:
+                        self._install_rebuilt(
+                            cf, part, r, self._rebuild_replica_table(cf, part, r, source=source)
+                        )
+        return time.perf_counter() - t0
 
     def scrub_column_family(self, cf_name: str, *, repair: bool = True) -> dict:
-        # scrub also audits and heals the views of a views column family
-        raise _not_in_slice("scrub_column_family (with view healing)", "Queue 1 item 4")
+        """Audit every live replica's sealed content checksum against its
+        host columns and heal mismatches from the partition log
+        (``scrub_repairs``). On a views column family a replica whose
+        columns verify also has its view audited against a fresh fold of
+        the resident tensors (``verify_views``, the ``block_sums`` kernel);
+        a corrupt or missing view is rebuilt from the tensors, no log
+        replay, counted under ``scrub_repairs`` and ``view_rebuilds``.
+        Returns ``{"replicas_checked", "corrupt", "repaired"}``; with
+        ``repair=False`` corruption is only reported."""
+        cf = self.column_families[cf_name]
+        checked = 0
+        corrupt: list[int] = []
+        repaired = 0
+        for part in cf.partitions:
+            for r in part.replicas:
+                node = self.nodes[r.node_id]
+                if not node.alive:
+                    continue
+                table = node.tables.get((cf.name, r.replica_id))
+                if table is None:
+                    continue
+                checked += 1
+                self._scrub_checks.inc()
+                if table.verify_checksum():
+                    if cf.views and (not table.has_views or not verify_views(table)):
+                        corrupt.append(r.replica_id)
+                        if repair:
+                            table.build_views()
+                            self._view_rebuilds.inc()
+                            self._scrub_repairs.inc()
+                            self._invalidate_result_cache(cf.name, replica_id=r.replica_id)
+                            repaired += 1
+                    continue
+                corrupt.append(r.replica_id)
+                if repair:
+                    self._repair_replica(cf, part, r)
+                    self._scrub_repairs.inc()
+                    repaired += 1
+        return {"replicas_checked": checked, "corrupt": corrupt, "repaired": repaired}
+
+    # -- outside the port ------------------------------------------------------------
 
     def split_partition(self, cf_name: str, *args, **kwargs) -> None:
-        raise _not_in_slice("split_partition", "Queue 1 item 4")
+        raise _not_in_slice("split_partition", "Queue 1 item 4b")
 
     def merge_partitions(self, cf_name: str, *args, **kwargs) -> None:
-        raise _not_in_slice("merge_partitions", "Queue 1 item 4")
+        raise _not_in_slice("merge_partitions", "Queue 1 item 4b")
 
     def rebalance(self, cf_name: str, *args, **kwargs) -> int:
-        raise _not_in_slice("rebalance", "Queue 1 item 4")
+        raise _not_in_slice("rebalance", "Queue 1 item 4b")
 
     # -- introspection -------------------------------------------------------------
 
     def layouts(self, cf_name: str) -> tuple[tuple[str, ...], ...]:
         """Per-replica layouts in global replica-id order."""
         return tuple(r.layout for r in self.column_families[cf_name].replicas)
+
+    def total_bytes(self) -> int:
+        """Bytes every node stores (:meth:`Node.bytes_stored`): the measure
+        of the paper's storage claim, that HR stores no more than TR."""
+        return sum(n.bytes_stored() for n in self.nodes)

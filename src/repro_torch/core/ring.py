@@ -24,10 +24,9 @@ Placement onto nodes is the deterministic crc32 scheme of
 :func:`place_replica`, with global replica ids ``vnode_id * RF + slot``,
 so partition 0 of a ``P = 1`` column family places exactly where the
 unpartitioned engine does, and every replica lands on the node the
-reference engine (``repro.core.ring``) puts it on. Migration (split,
-merge, rebalance) and hinted handoff are not ported yet (ROADMAP.md
-Queue 1 item 4); ``Partition.flushed_lsn`` and ``Partition.hints`` keep
-the reference's shape meanwhile.
+reference engine (``repro.core.ring``) puts it on. ``Partition.flushed_lsn``
+and ``Partition.hints`` carry the engine's hinted handoff. Migration
+(split, merge, rebalance) is not ported yet (ROADMAP.md Queue 1 item 4b).
 """
 
 from __future__ import annotations

@@ -122,17 +122,28 @@ def _table_block_sums(state, first_block: int = 0) -> np.ndarray:
 
 
 def build_views_state(state, packed) -> dict:
-    """Fresh view over a device state holding one sorted run (CREATE,
-    post-compaction): fold the value tile into per-block partials and
-    index the single run's packed keys."""
+    """Fresh view over a device state: fold the value tile into per-block
+    partials and index each resident run's packed keys. ``packed`` is the
+    table's host (merged) order; on a run stack (a scrub heal between
+    compactions) run ``r``'s keys are the host keys of its device rows
+    ``row_map[run_starts[r]:run_starts[r + 1]]``, each run sorted on its
+    own. (The reference indexes the merged keys as one run, which is right
+    only for a single run: CREATE, recovery, post-compaction.)"""
     from ...kernels.ops import DEVICE_BLOCK_N
 
     n = int(state["n_rows"])
+    packed = np.asarray(packed, np.int64)[:n]
+    row_map = state.get("row_map")
+    if row_map is None:
+        runs = [packed.copy()]
+    else:
+        bounds = list(state["run_starts"]) + [n]
+        runs = [packed[row_map[a:b]] for a, b in zip(bounds[:-1], bounds[1:])]
     return {
         "block_sums": _table_block_sums(state),
         "block_n": DEVICE_BLOCK_N,
         "n_rows": n,
-        "run_packed": [np.asarray(packed, np.int64)[:n].copy()],
+        "run_packed": runs,
     }
 
 

@@ -243,6 +243,33 @@ class SortedTable:
     def n_rows(self) -> int:
         return len(self)
 
+    def resorted(self, layout: Sequence[str]) -> "SortedTable":
+        """Same dataset, another serialization: the recovery path that
+        rebuilds a lost replica by re-sorting a survivor (paper §4). The
+        result is a host table; the engine places it on its device."""
+        return SortedTable.from_columns(self.key_cols, self.value_cols, layout, self.schema)
+
+    def dataset_fingerprint(self) -> str:
+        """Order-independent content hash: replicas of the same dataset have
+        equal fingerprints whatever their serialization (the HR invariant).
+        Rows are brought to a canonical order (lexicographic over the sorted
+        column names, value columns as tie-breakers) and hashed exactly —
+        the reference's definition, so the two packages' fingerprints of
+        the same rows are equal."""
+        import hashlib
+
+        canon = tuple(sorted(self.key_cols))
+        packed = pack_columns(self.key_cols, canon, self.schema)
+        vnames = tuple(sorted(self.value_cols))
+        tiebreak = [np.asarray(self.value_cols[c], dtype=np.float64) for c in reversed(vnames)]
+        order = np.lexsort(tuple(tiebreak) + (packed,))
+        md = hashlib.md5()
+        md.update(packed[order].tobytes())
+        for c in vnames:
+            md.update(c.encode())
+            md.update(np.asarray(self.value_cols[c], dtype=np.float64)[order].tobytes())
+        return md.hexdigest()
+
     # -- content checksums ---------------------------------------------------
 
     def content_digest(self) -> int:

@@ -925,3 +925,96 @@ def test_slab_locate_matches_plain_and_searchsorted_at_sf5(cuda_device, bits, do
                 torch.searchsorted(win, torch.tensor(hi_keys[i], device=cuda_device), side="right"))
         assert (int(got[i, 0]), int(got[i, 1])) == (int(want[0]), int(want[1])), (i, s, e)
     assert got[-1].tolist() == [0, 0]
+
+
+# -- the availability layer on resident replicas ---------------------------------------
+
+
+def _avail_engine(device, *, views, seed=40, n=40_000):
+    """An engine on ``device`` with one resident column family "cf" of
+    ``n`` TPC-H orders rows (RF 3, three layouts), and its rows."""
+    kc, vc = generate_orders(n / 1.5e6, seed=seed)
+    eng = T.HREngine(n_nodes=5, device=device, result_cache=False)
+    eng.create_column_family(
+        "cf", kc, vc, replication_factor=3, schema=orders_schema(), device_resident=True, views=views,
+        layouts=[("custkey", "orderdate", "clerk"), ("clerk", "orderdate", "custkey"), ("orderdate", "custkey", "clerk")],
+    )
+    return eng, kc, vc
+
+
+@pytest.mark.cuda
+def test_read_repair_of_a_flipped_resident_value(cuda_device):
+    """A flipped exponent bit in one replica's resident value tile: the
+    checksum (host columns) does not see it, an ALL read of that row's
+    key finds the digests disagree, repairs the replica from the log on
+    the card and answers like a CPU twin."""
+    eng, kc, vc = _avail_engine(cuda_device, views=False)
+    twin, _, _ = _avail_engine("cpu", views=False)
+    cf = eng.column_families["cf"]
+    t = eng._table(cf, cf.replicas[1])
+    for row in range(0, len(t), 997):
+        filters = {c: T.Eq(int(t.key_cols[c][row])) for c in cf.key_names}
+        if twin.read("cf", T.Query(filters, "count"))[0].rows_matched == 1:
+            break
+    bits = t._device["values_tile"][t._device["value_rows"]["totalprice"]].view(torch.int32)
+    bits[row] ^= 1 << 30
+    assert eng.scrub_column_family("cf", repair=False)["corrupt"] == []
+    q = T.Query(filters, "sum", "totalprice")
+    (got, _), = eng.read_many("cf", [q], consistency="ALL")
+    (want, _), = twin.read_many("cf", [q])
+    assert got.value == want.value and got.rows_matched == want.rows_matched == 1
+    assert eng.stats["digest_mismatches"] == 1 and eng.stats["read_repairs"] == 1
+    fresh = ops.build_device_state(eng._table(cf, cf.replicas[1]), device=cuda_device)
+    assert torch.equal(eng._table(cf, cf.replicas[1])._device["values_tile"], fresh["values_tile"])
+
+
+@pytest.mark.cuda
+def test_scrub_heals_views_on_the_card(cuda_device):
+    """A corrupted view partial and a deleted view, after writes left run
+    stacks: scrub reports and rebuilds both on the card, and view-served
+    sums then equal the fused scan on the same table bit for bit."""
+    eng, _, _ = _avail_engine(cuda_device, views=True)
+    wk, wv = generate_orders(2_000 / 1.5e6, seed=41)
+    eng.write("cf", wk, wv)
+    cf = eng.column_families["cf"]
+    tables = [eng._table(cf, r) for r in cf.replicas]
+    tables[0]._device["views"]["block_sums"][0, 1] = 2 * tables[0]._device["views"]["block_sums"][0, 1] + 1
+    del tables[1]._device["views"]
+    launches = K.KERNELS["block_sums"].launches
+    report = eng.scrub_column_family("cf")
+    assert report["corrupt"] == [0, 1] and report["repaired"] == 2
+    assert K.KERNELS["block_sums"].launches > launches
+    assert all(verify_views(t) for t in tables)
+    qs = [T.Query({"custkey": T.Range(lo, lo + 5000)}, "sum", "totalprice") for lo in range(0, 60_000, 7000)]
+    qs += [T.Query({"clerk": T.Range(lo, lo + 3)}, "count") for lo in range(0, 900, 90)]
+    for t in tables:
+        eligible = [q for q in qs if t._view_eligible(q)]
+        for a, b in zip(t.execute_many(eligible), ops.table_execute_device_many(t, eligible)):
+            assert (a.value, a.rows_matched, a.rows_scanned) == (b.value, b.rows_matched, b.rows_scanned)
+
+
+@pytest.mark.cuda
+def test_recovered_replica_equals_a_fresh_build(cuda_device):
+    """A node loss, then recovery from the log and from a survivor: the
+    rebuilt replica's key lanes and value tile on the card are array-equal
+    to a fresh build of the same rows in its layout, its view is rebuilt,
+    and a hinted outage heals by replaying exactly the missed rows."""
+    eng, kc, vc = _avail_engine(cuda_device, views=True)
+    cf = eng.column_families["cf"]
+    r = cf.replicas[2]
+    for source in ("log", "survivor"):
+        peer = next(p for p in cf.replicas if p.node_id != r.node_id)
+        rows = (kc, vc) if source == "log" else (eng._table(cf, peer).key_cols, eng._table(cf, peer).value_cols)
+        eng.fail_node(r.node_id)
+        eng.recover_node(r.node_id, source=source)
+        t = eng._table(cf, r)
+        fresh = ops.build_device_state(T.SortedTable.from_columns(*rows, r.layout, cf.schema), device=cuda_device)
+        assert t._device["keys"].is_cuda
+        assert torch.equal(t._device["keys"], fresh["keys"]) and torch.equal(t._device["values_tile"], fresh["values_tile"])
+        assert verify_views(t)
+    wk, wv = generate_orders(3_000 / 1.5e6, seed=42)
+    eng.fail_node(r.node_id, transient=True)
+    eng.write("cf", wk, wv)
+    eng.node_up(r.node_id)
+    assert eng.stats["hint_rows_replayed"] == len(wk["custkey"])
+    assert len({eng._table(cf, p).dataset_fingerprint() for p in cf.replicas}) == 1

@@ -7,8 +7,7 @@ result cache's hits, bound and invalidation, and the write options and
 layouts the slice keeps (group commit, commit-log checkpoints, checksummed
 flushes, TR layouts). Also the port's
 boundaries: it imports neither JAX nor ``repro``, it does not fall back
-to the CPU when CUDA is missing, and features outside its first slice
-raise.
+to the CPU when CUDA is missing, and features not ported yet raise.
 """
 
 import ast
@@ -278,6 +277,10 @@ def test_tr_layouts_match_reference():
 
 
 def test_features_outside_the_slice_raise(engines):
+    """Ring migration and parallel writes (Queue 1 item 4b) and read
+    deadlines (item 5) raise, naming their ROADMAP item; the availability
+    layer (consistency levels, hedges, node failure, recovery, scrub) is
+    ported and answers."""
     _, port, wl = engines
     kc, vc = generate_orders(0.001, seed=1)
     eng = T.HREngine(n_nodes=3, device="cpu")
@@ -287,18 +290,29 @@ def test_features_outside_the_slice_raise(engines):
             name, kc, vc, replication_factor=2, mechanism="TR", schema=schema, partitions=2, **kwargs
         )
         for call in (eng.split_partition, eng.merge_partitions, eng.rebalance):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4b"):
                 call(name, 0)
+    for kwargs in ({"parallel_writes": True}, {"rebalance_imbalance": 1.5}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4b"):
+            T.HREngine(n_nodes=3, device="cpu", **kwargs)
     q = _queries(T, wl)[0]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+        port.read("o", q, deadline_s=1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+        port.read_many("o", [q], deadline_s=1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        port.rebalance("o")
+    want = port.read_many("o", [q])[0][0]
     for kwargs in ({"consistency": "QUORUM"}, {"consistency": "ALL"}, {"hedge": True}):
-        with pytest.raises(NotImplementedError):
-            port.read("o", q, **kwargs)
-        with pytest.raises(NotImplementedError):
-            port.read_many("o", [q], **kwargs)
-    for call in (lambda: port.fail_node(0), lambda: port.recover_node(0),
-                 lambda: port.scrub_column_family("o"), lambda: port.rebalance("o")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+        assert port.read("o", q, **kwargs)[0].rows_matched == want.rows_matched
+        assert port.read_many("o", [q], **kwargs)[0][0].rows_matched == want.rows_matched
+    report = eng.scrub_column_family("p")
+    assert report == {"replicas_checked": 4, "corrupt": [], "repaired": 0}
+    victim = eng.column_families["p"].replicas[0].node_id
+    eng.fail_node(victim)
+    assert eng.recover_node(victim) > 0.0
+    eng.fail_node(victim, transient=True)
+    assert eng.node_up(victim) >= 0.0 and eng.stats["hints_open"] == 0
 
 
 def test_engine_without_cuda_raises(monkeypatch):
