@@ -11,7 +11,9 @@ eligible sums and counts are served from per-block partials; and the
 same rows partitioned over a token ring (four partitions of three
 replicas), read by scatter-gather and written by routed writes; then the
 availability layer on all three (digest reads with read repair, hinted
-handoff, recovery, hedges, failover, scrub with view healing). It holds
+handoff, recovery, hedges, failover, scrub with view healing); then ring
+migration (split, merge, the drift trigger's rebalance) of the
+partitioned families, a parallel write and read deadlines. It holds
 every kernel of these paths against its plain PyTorch version on the same
 CUDA tensors, at the paths' shapes, and times both.
 
@@ -142,17 +144,36 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 build of the same rows; a hedged batch with one node slowed
                 past hedge_ratio; a failover with read_fault_budget = 1.
                 Every answer against the oracle
+  14. migration  every node up first. orders_p: split_partition of
+                partition 0 at its median token, a batch of 256; the
+                merge back (the ring as CREATE made it), a batch; the drift
+                trigger armed at 1.05 (rebalance_imbalance), one routed
+                write of 20,000 rows firing exactly one rebalance to a row
+                imbalance <= 1.25, a batch. A fresh SF 1, P = 2 views family
+                like orders_pv: split, merge, rebalance(exact=False), each
+                rebuilding views on the resharded vnodes only (block_sums)
+                and keeping the other vnodes' view state, each followed by a
+                batch whose view-served partial answers equal the fused
+                kernel bit for bit. orders: a serial write of 20,000 rows,
+                then write(parallel=True) of 20,000 (three replica flushes
+                on the pool), fingerprints equal; read_many with deadline_s=0.0 refused and counted
+                once, with deadline_s=60.0 equal to a call without it.
+                Every answer against the oracle; device allocation before,
+                at the peak and after the split, the drift rebalance and the
+                views steps, each back within the new rows' bytes + 64 MiB
 Every kernel wrapper's launch count is set to 0 just before phase 3 and
 read after phase 7, just before phase 5 and after it, just before phase 6
 and after it, just before each of phase 8's two column families and after
-it, just before phase 10 and after it, and just before phase 13 and
-after it; phases 5, 6, 8 and 13 count apart and their counts are
-restored after them, so the main path's counts hold phases 3, 4 and 7.
-Each kernel must have launched on its path (the row-slab kernels on phase
-5's, rows 1-4 on phase 8's, the view kernels on phase 10's, the fused
-scan, select compaction, histogram and both view kernels on phase 13's);
-the row-slab line reports phase 6's launches beside phase 5's, and the
-kernels line's launches add phase 13's to the main path's.
+it, just before phase 10 and after it, and just before phases 13 and 14
+and after each; phases 5, 6, 8, 13 and 14 count apart and their counts
+are restored after them, so the main path's counts hold phases 3, 4 and
+7. Each kernel must have launched on its path (the row-slab kernels on
+phase 5's, rows 1-4 on phase 8's, the view kernels on phase 10's, the
+fused scan, select compaction, histogram and both view kernels on phase
+13's, the fused scan, select compaction, histogram and block_sums on
+phase 14's); the row-slab line reports phase 6's launches beside phase
+5's, and the kernels line's launches add phases 13's and 14's to the main
+path's.
 The oracle is a brute-force pass over every generated row on the card
 (plain PyTorch masks and float64 sums); checks that launch kernels
 (verify_views, the fused comparisons, the select checks) leave the
@@ -167,7 +188,9 @@ empty-partition skips, batch, write and per-flush walls, launches per
 kernel, the token histogram's launch times; ``orders_pv``'s), the
 batched-read line, the availability line (walls of the scrub, recovery,
 ``node_up`` and the QUORUM/ALL batches, the counters each step moved,
-the launches, the card), the card's name and power limit, and
+the launches, the card), the migration line (each step's host wall,
+rows moved, splits and merges, imbalances, device allocation, launches),
+the card's name and power limit, and
 ``{"ok": true, "device": ...}``. The kernels line's ``ecdf_hist`` row
 carries the token histogram's launches under ``token_hist``.
 
@@ -179,6 +202,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import math
 import pathlib
@@ -429,6 +453,28 @@ def own_counts(fn, *args):
     finally:
         for name, k in K.KERNELS.items():
             k.launches = saved[name]
+
+
+def check_partial_view_bits(eng, cf_name, partials, label) -> int:
+    """``check_view_bits`` on a partitioned read: each (replica, query,
+    partial answer) ``ServedBy`` recorded whose query is eligible for that
+    replica's view against the fused kernel on the same table, bit for
+    bit. Returns how many partial answers the views served."""
+    from repro_torch.kernels import ops
+
+    cf = eng.column_families[cf_name]
+    groups: dict[int, tuple] = {}
+    for r, q, res in partials:
+        if eng._table(cf, r)._view_eligible(q):
+            groups.setdefault(r.replica_id, (r, []))[1].append((q, res))
+    for r, items in groups.values():
+        fused = ops.table_execute_device_many(eng._table(cf, r), [q for q, _ in items])
+        for (q, a), b in zip(items, fused):
+            check(
+                (a.value, a.rows_scanned, a.rows_matched) == (b.value, b.rows_scanned, b.rows_matched),
+                f"{label}: view partial {a} != fused {b} for {q.filters} on replica {r.replica_id}",
+            )
+    return sum(len(items) for _, items in groups.values())
 
 
 def check_view_bits(eng, cf_name, pairs, label) -> int:
@@ -1243,27 +1289,34 @@ class ServedBy:
     """Which replica served each query of an engine's last read, per
     partition: wraps the engine's ``_execute_group`` (the call every
     (partition, replica) group of ``read_many`` goes through, cache hits
-    included) and records each group's replica and query indices. It
-    only observes. ``read_many`` and ``read`` clear the record first."""
+    included) and records each group's replica and query indices, and
+    each (replica, query, partial answer) that group kept in ``partials``.
+    It only observes. ``read_many`` and ``read`` clear the record first."""
 
     def __init__(self, eng):
         self.eng = eng
         self.map: dict[int, list] = {}
+        self.partials: list = []
         inner = eng._execute_group
 
-        def recording(cf, r, qidx, *args, **kwargs):
+        def recording(cf, r, qidx, queries, est_rows, est_costs, results, reports, **kwargs):
             for qi in qidx:
                 self.map.setdefault(qi, []).append(r)
-            return inner(cf, r, qidx, *args, **kwargs)
+            out = inner(cf, r, qidx, queries, est_rows, est_costs, results, reports, **kwargs)
+            self.partials.extend(
+                (r, queries[qi], results[qi]) for qi in qidx
+                if reports[qi] is not None and reports[qi].replica_id == r.replica_id
+            )
+            return out
 
         eng._execute_group = recording
 
     def read_many(self, cf_name, batch, **kwargs):
-        self.map = {}
+        self.map, self.partials = {}, []
         return self.eng.read_many(cf_name, batch, **kwargs)
 
     def read(self, cf_name, q):
-        self.map = {}
+        self.map, self.partials = {}, []
         return self.eng.read(cf_name, q)
 
 
@@ -1542,6 +1595,27 @@ def fresh_state_equal(table, key_cols, value_cols, dev) -> bool:
     return ok
 
 
+def with_writes(key_cols, value_cols, writes):
+    """The rows a column family holds after ``writes``, CREATE rows first."""
+    return (
+        {c: np.concatenate([key_cols[c]] + [w[0][c] for w in writes]) for c in key_cols},
+        {c: np.concatenate([value_cols[c]] + [w[1][c] for w in writes]) for c in value_cols},
+    )
+
+
+def extra_writes(seed: int, n: int) -> list:
+    """``n`` writes of ``WRITE_ROWS`` generated TPC-H orders rows from
+    ``seed``."""
+    import repro_torch.core as T
+
+    wk, wv = T.tpch.generate_orders(1.0, seed=seed, rows_per_sf=n * WRITE_ROWS)
+    return [
+        ({c: v[i * WRITE_ROWS:(i + 1) * WRITE_ROWS] for c, v in wk.items()},
+         {c: v[i * WRITE_ROWS:(i + 1) * WRITE_ROWS] for c, v in wv.items()})
+        for i in range(n)
+    ]
+
+
 def timed(fn, *args, **kwargs):
     """``fn(*args, **kwargs)`` and its wall in ms on the host clock, the
     card synchronized on both sides."""
@@ -1585,10 +1659,7 @@ def availability_phase(eng, veng, peng, key_cols, value_cols, writes, n_rows, se
     from repro_torch.core.storage.views import verify_views
 
     info: dict = {"card": card_line()}
-    rows10 = (
-        {c: np.concatenate([key_cols[c]] + [w[0][c] for w in writes]) for c in key_cols},
-        {c: np.concatenate([value_cols[c]] + [w[1][c] for w in writes]) for c in value_cols},
-    )
+    rows10 = with_writes(key_cols, value_cols, writes)
     oracle = Oracle(*rows10, dev)
 
     # -- orders_v: scrub reports and heals a corrupt and a missing view
@@ -1678,16 +1749,8 @@ def availability_phase(eng, veng, peng, key_cols, value_cols, writes, n_rows, se
     torch.cuda.empty_cache()
 
     # -- orders: a transient outage healed by hinted handoff
-    wk, wv = T.tpch.generate_orders(1.0, seed=seed + 9, rows_per_sf=2 * WRITE_ROWS)
-    outage = [
-        ({c: v[i * WRITE_ROWS:(i + 1) * WRITE_ROWS] for c, v in wk.items()},
-         {c: v[i * WRITE_ROWS:(i + 1) * WRITE_ROWS] for c, v in wv.items()})
-        for i in range(2)
-    ]
-    rows12 = (
-        {c: np.concatenate([rows10[0][c]] + [w[0][c] for w in outage]) for c in key_cols},
-        {c: np.concatenate([rows10[1][c]] + [w[1][c] for w in outage]) for c in value_cols},
-    )
+    outage = extra_writes(seed + 9, 2)
+    rows12 = with_writes(*rows10, outage)
     del rows10
     victim_r = cf.replicas[2]
     victim = victim_r.node_id
@@ -1753,6 +1816,278 @@ def availability_phase(eng, veng, peng, key_cols, value_cols, writes, n_rows, se
     check_answers(eng, "orders", list(zip(fbatch, out)), oracle, "after the failover")
     info["failover"] = dict(fo, faulty_node=faulty)
     info["total_bytes"] = {"orders": eng.total_bytes(), "orders_v": veng.total_bytes(), "orders_p": peng.total_bytes()}
+    del oracle
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return info
+
+
+# -- phase 14: ring migration, the drift trigger, parallel flushes, deadlines ---------
+
+
+MIGRATION_KERNELS = ("scan_agg_locate", "select_compact", "ecdf_hist", "block_sums")
+MIGRATION_COUNTERS = ("partition_splits", "partition_merges", "rebalance_rows_moved", "view_rebuilds")
+MEM_SLACK = 64 << 20
+VIEWS_SF = 1.0  # scale factor of phase 14's views family (orders_pv's)
+
+
+def device_bytes_per_row(table) -> int:
+    """Resident bytes a row of ``table`` takes: its key lanes and value
+    tile rows, 4 bytes each."""
+    st = table._device
+    return 4 * (st["keys"].shape[0] + st["values_tile"].shape[0])
+
+
+class MemStep:
+    """``torch.cuda.memory_allocated`` before a step, its peak (the peak
+    counter reset first) and after it; the step must end within
+    ``new_bytes`` + 64 MiB of where it began, or a retired table's tensors
+    are still held."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.before = torch.cuda.memory_allocated(self.dev)
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.peak = torch.cuda.max_memory_allocated(self.dev)
+        self.after = torch.cuda.memory_allocated(self.dev)
+
+    def report(self, new_bytes: int, label: str) -> dict:
+        check(
+            self.after - self.before <= new_bytes + MEM_SLACK,
+            f"{label}: device allocation grew {self.after - self.before} bytes, "
+            f"more than the new rows' {new_bytes} + 64 MiB",
+        )
+        return dict(before=self.before, peak=self.peak, after=self.after, new_rows_bytes=new_bytes)
+
+
+class FlushClock:
+    """A sink for ``write``'s ``trace=`` spans that keeps each replica's
+    ``engine.flush`` wall on the host clock (a parallel write's spans end
+    on pool threads)."""
+
+    def __init__(self):
+        self.flush_ms: dict[int, float] = {}
+        self.tracer = self
+
+    @staticmethod
+    def now() -> float:
+        return time.perf_counter()
+
+    def child(self, name: str, **kw) -> "_FlushSpan":
+        return _FlushSpan(self, name, kw.get("replica"))
+
+
+class _FlushSpan:
+    def __init__(self, clock: FlushClock, name: str, replica):
+        self.clock, self.name, self.replica, self.t0 = clock, name, replica, time.perf_counter()
+        self.tracer = clock
+
+    def child(self, name: str, **kw) -> "_FlushSpan":
+        return _FlushSpan(self.clock, name, kw.get("replica"))
+
+    def end(self, **_) -> None:
+        if self.name == "engine.flush":
+            self.clock.flush_ms[self.replica] = (time.perf_counter() - self.t0) * 1e3
+
+
+def migration_phase(eng, peng, key_cols, value_cols, writes, n_rows, seed, dev) -> dict:
+    """Ring migration, the drift trigger, parallel flushes and read
+    deadlines on the SF 5 families phase ``availability`` left (every node
+    up), each step's answers against the oracle on the card.
+
+    (a) ``split_partition`` of ``orders_p``'s partition 0 at its median
+    token, then a batch of 256; (b) ``merge_partitions(0)``, which restores
+    the ring, and a batch; (c) the drift trigger armed at 1.05 through
+    ``rebalance_imbalance``, one more routed write of 20,000 rows, which
+    must fire exactly one rebalance to an imbalance <= 1.25, and a batch;
+    (d) on a fresh SF 1, P = 2 views family shaped like ``orders_pv``:
+    split, merge and ``rebalance(exact=False)``, each followed by a batch
+    whose view-served partial answers equal the fused kernel bit for bit,
+    views rebuilt on resharded vnodes only, each batch's garbage-collector
+    time clocked (``GcClock``); (e) four writes of 20,000 rows on
+    ``orders``, serial, parallel (three replica flushes on the pool),
+    parallel, serial, each with its flush wall, per-replica flush walls
+    and compactions, all replicas' fingerprints equal after each parallel
+    one, and a batch; (f) ``read_many`` with
+    ``deadline_s=0.0`` refused once, with ``deadline_s=60.0`` answered as
+    without. Device allocation before, at the peak and after (a), (c) and
+    (d)."""
+    import repro_torch.core as T
+
+    for e in (eng, peng):
+        check(all(n.alive for n in e.nodes), "a node is still down at the start of the migration phase")
+    info: dict = {"card": card_line(), "walls_ms": {}, "batch_ms": {}, "memory": {}}
+    walls, batch_ms = info["walls_ms"], info["batch_ms"]
+    pcf = peng.column_families["orders_p"]
+    served = ServedBy(peng)
+    before = peng.stats
+    rows_p = with_writes(key_cols, value_cols, writes)
+    oracle = Oracle(*rows_p, dev)
+
+    def batch(e, srv, cf_name, qs, orc, label):
+        out, batch_ms[label] = timed(srv.read_many, cf_name, qs)
+        check_partitioned(e, cf_name, list(zip(qs, out)), srv.map, orc, label)
+        return out
+
+    # (a) split partition 0 at its median committed token
+    starts0 = pcf.ring.starts
+    info["imbalance"] = {"rows_at_start": peng.partition_imbalance("orders_p"),
+                         "token_hist_at_start": pcf.token_hist.imbalance(starts0)}
+    with MemStep(dev) as m:
+        token, walls["a_split"] = timed(peng.split_partition, "orders_p", 0)
+    info["memory"]["a_split"] = m.report(0, "split")
+    check(pcf.ring.n_partitions == 5 and token in pcf.ring.starts, "the split did not add its boundary")
+    info["imbalance"]["rows_after_split"] = peng.partition_imbalance("orders_p")
+    for r in pcf.replicas:
+        check(peng._table(pcf, r)._device["keys"].device.type == dev.type, f"replica {r.replica_id} is not resident")
+    batch(peng, served, "orders_p", read_batches(n_rows, seed + 11)[0], oracle, "after the split")
+
+    # (b) merge the two children back: the ring is CREATE's again
+    _, walls["b_merge"] = timed(peng.merge_partitions, "orders_p", 0)
+    check(pcf.ring.starts == starts0, "merge did not restore the ring")
+    info["imbalance"]["rows_after_merge"] = peng.partition_imbalance("orders_p")
+    batch(peng, served, "orders_p", read_batches(n_rows, seed + 12)[0], oracle, "after the merge")
+
+    # (c) the drift trigger: armed above CREATE's imbalance and below the
+    # writes', it must fire on the next write's flush, once
+    fired = []
+    inner = peng.rebalance
+
+    def counting(cf_name, **kwargs):
+        fired.append(cf_name)
+        return inner(cf_name, **kwargs)
+
+    peng.rebalance = counting
+    peng.rebalance_imbalance = 1.05
+    moved0 = peng.stats["rebalance_rows_moved"]
+    (wk, wv), = extra_writes(seed + 13, 1)
+    bpr = device_bytes_per_row(peng._table(pcf, pcf.replicas[0]))
+    info["imbalance"]["token_hist_before_trigger"] = pcf.token_hist.imbalance(pcf.ring.starts)
+    with MemStep(dev) as m:
+        _, walls["c_write_with_rebalance"] = timed(peng.write, "orders_p", wk, wv)
+    info["memory"]["c_drift"] = m.report(WRITE_ROWS * bpr * pcf.replication_factor, "drift rebalance")
+    peng.rebalance_imbalance = 0.0
+    del peng.rebalance
+    check(fired == ["orders_p"], f"the drift trigger fired {len(fired)} rebalances, not 1")
+    moved = peng.stats["rebalance_rows_moved"] - moved0
+    check(moved > 0, "the drift rebalance moved no rows")
+    info["imbalance"]["rows_after_rebalance"] = peng.partition_imbalance("orders_p")
+    info["imbalance"]["token_hist_after_rebalance"] = pcf.token_hist.imbalance(pcf.ring.starts)
+    check(info["imbalance"]["rows_after_rebalance"] <= 1.25, f"imbalance after the rebalance {info['imbalance']}")
+    info["drift"] = dict(threshold=1.05, rows_moved=moved, ring_starts=[int(x) for x in pcf.ring.starts],
+                         rows_per_partition=[int(p.n_rows_committed) for p in pcf.partitions])
+    del oracle
+    rows_p = with_writes(*rows_p, [(wk, wv)])
+    oracle = Oracle(*rows_p, dev)
+    batch(peng, served, "orders_p", read_batches(n_rows, seed + 14)[0], oracle, "after the drift rebalance")
+    info["orders_p"] = delta(peng, before, MIGRATION_COUNTERS)
+    del oracle, rows_p
+    torch.cuda.empty_cache()
+
+    # (d) a views family like orders_pv: split, merge, histogram rebalance
+    kc, vc = T.tpch.generate_orders(VIEWS_SF, seed=seed + 8)
+    vrows = len(kc["custkey"])
+    voracle = Oracle(kc, vc, dev)
+    veng = T.HREngine(n_nodes=6, device=dev)
+    vserved = ServedBy(veng)
+    vcf, walls["d_create"] = timed(
+        veng.create_column_family, "orders_pv", kc, vc, replication_factor=3, layouts=eng.layouts("orders"),
+        schema=T.tpch.orders_schema(), device_resident=True, views=True, partitions=2, partition_balance="tokens",
+    )
+    import repro_torch.kernels as K
+
+    views_info = {}
+    with MemStep(dev) as m:
+        for step, call in (
+            ("split", lambda: veng.split_partition("orders_pv", 0)),
+            ("merge", lambda: veng.merge_partitions("orders_pv", 0)),
+            ("rebalance_histogram", lambda: veng.rebalance("orders_pv", exact=False)),
+        ):
+            kept = {
+                p.vnode_id: [veng._table(vcf, r)._device["views"] for r in p.replicas] for p in vcf.partitions
+            }
+            vb, bs = veng.stats, K.KERNELS["block_sums"].launches
+            _, walls[f"d_{step}"] = timed(call)
+            rebuilt = [p for p in vcf.partitions if p.vnode_id not in kept]
+            d = delta(veng, vb, MIGRATION_COUNTERS)
+            check(d["view_rebuilds"] == 3 * len(rebuilt), f"views {step}: {d} for {len(rebuilt)} new vnodes")
+            check(K.KERNELS["block_sums"].launches - bs >= 3 * len(rebuilt), f"views {step}: block_sums did not launch")
+            for p in vcf.partitions:
+                if p.vnode_id in kept:
+                    check(
+                        all(veng._table(vcf, r)._device["views"] is v for r, v in zip(p.replicas, kept[p.vnode_id])),
+                        f"views {step}: a kept vnode's view state changed",
+                    )
+            qs = read_batches(vrows, seed + 15)[0]
+            with GcClock() as gc_clock:
+                batch(veng, vserved, "orders_pv", qs, voracle, f"orders_pv after the {step}")
+            served_n = uncounted(check_partial_view_bits, veng, "orders_pv", vserved.partials, f"orders_pv {step}")
+            check(served_n > 0, f"orders_pv after the {step}: no view served a partial answer")
+            views_info[step] = dict(d, new_vnodes=len(rebuilt), view_served_partials=served_n,
+                                    ring_starts=[int(x) for x in vcf.ring.starts],
+                                    batch_gc_ms={str(g): ms for g, ms in gc_clock.ms.items()})
+    info["memory"]["d_views"] = m.report(0, "views family migrations")
+    info["orders_pv"] = views_info
+    del voracle, veng, vserved, vcf
+    torch.cuda.empty_cache()
+
+    # (e) four writes on orders in the order serial, parallel, parallel,
+    # serial: three replica flushes in turn or on the pool, each write's
+    # compactions recorded beside its walls
+    cf = eng.column_families["orders"]
+    rows_o = with_writes(key_cols, value_cols, writes + extra_writes(seed + 9, 2))
+    e_writes = extra_writes(seed + 16, 4)
+    info["e_writes"] = []
+    for i, ((wk, wv), parallel) in enumerate(zip(e_writes, (False, True, True, False))):
+        if i == 0:
+            check(eng._pool is None, "a serial write used the pool")
+        before, clock = eng.stats, FlushClock()
+        _, wall = timed(eng.write, "orders", wk, wv, parallel=parallel, trace=clock)
+        st = eng.stats
+        check(st["memtable_flushes"] - before["memtable_flushes"] == 3, f"write {i} did not flush 3 replicas")
+        if parallel:
+            check(eng._pool is not None, "the parallel write did not use the pool")
+            fps = {eng._table(cf, r).dataset_fingerprint() for r in cf.replicas}
+            check(len(fps) == 1, f"replica fingerprints differ after parallel write {i}")
+        info["e_writes"].append(dict(
+            parallel=parallel, wall_ms=wall, flush_wall_ms=(st["flush_wall_seconds"] - before["flush_wall_seconds"]) * 1e3,
+            replica_flush_ms={str(r): ms for r, ms in sorted(clock.flush_ms.items())},
+            compactions=st["compactions"] - before["compactions"],
+        ))
+        walls[f"e_write_{i}_{'parallel' if parallel else 'serial'}"] = wall
+    oracle = Oracle(*with_writes(*rows_o, e_writes), dev)
+    del rows_o
+    qs = read_batches(n_rows, seed + 17)[0]
+    # the round-robin counter restarts before this read and before the one
+    # with a deadline, so both route every query alike
+    cf.rr_counter = itertools.count()
+    out, batch_ms["orders after the parallel write"] = timed(eng.read_many, "orders", qs)
+    check_answers(eng, "orders", list(zip(qs, out)), oracle, "orders after the parallel write")
+
+    # (f) read deadlines: a spent budget is refused and counted once; a
+    # generous one answers as a call without it
+    before = eng.stats
+    try:
+        eng.read_many("orders", qs, deadline_s=0.0)
+    except T.DeadlineExceeded:
+        pass
+    else:
+        fail("read_many(deadline_s=0.0) answered")
+    check(eng.stats["deadline_exceeded"] - before["deadline_exceeded"] == 1, "the refusal was not counted once")
+    eng._invalidate_result_cache("orders")
+    cf.rr_counter = itertools.count()
+    got, batch_ms["orders with deadline_s=60"] = timed(eng.read_many, "orders", qs, deadline_s=60.0)
+    for (a, _), (b, _) in zip(out, got):
+        check((a.value, a.rows_matched, a.rows_scanned) == (b.value, b.rows_matched, b.rows_scanned),
+              "deadline_s=60 answered differently")
+    info["deadline"] = delta(eng, before, ("deadline_exceeded", "read_retries"))
     del oracle
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2015,7 +2350,19 @@ def run(args, dev) -> None:
     for name, n in avail_launches.items():
         launches[name] += n
 
-    # 14. report
+    # 14. ring migration, the drift trigger, a parallel write and read
+    # deadlines, its launch counts from 0, then added to the kernels line's
+    migration, migration_launches = phases.run(
+        "migration", own_counts, migration_phase,
+        eng, peng, key_cols, value_cols, writes, n_rows, args.seed, dev,
+    )
+    for name in MIGRATION_KERNELS:
+        check(migration_launches[name] > 0, f"kernel {name} was not launched on the migration path")
+    migration["launches"] = {name: n for name, n in migration_launches.items() if n}
+    for name, n in migration_launches.items():
+        launches[name] += n
+
+    # 15. report
     small_tile = report.pop("small_tile")
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2037,6 +2384,7 @@ def run(args, dev) -> None:
     print(json.dumps({"partitions": dict(card=card, **partitions_info)}))
     print(json.dumps({"batched_read": dict(card=card, **trajectory)}))
     print(json.dumps({"availability": avail}))
+    print(json.dumps({"migration": migration}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

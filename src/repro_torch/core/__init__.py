@@ -2,7 +2,7 @@
 ECDF stats → cost model (Eq 1–4) → HRCA (Alg 1) → HREngine (paper §4),
 with materialized per-slab views on device-resident replicas and the
 availability layer (hinted handoff, digest reads with read repair, hedged
-reads and failover, recovery, scrub)."""
+reads and failover, recovery, scrub), ring migration and read deadlines."""
 
 from .cost_model import CostModel, LinearCostFunction, estimate_rows, estimate_rows_many
 from .ecdf import ColumnStats, TableStats
@@ -12,6 +12,7 @@ from .engine import (
     QUORUM,
     ColumnFamily,
     CorruptRunError,
+    DeadlineExceeded,
     HREngine,
     Node,
     ReadReport,
@@ -52,6 +53,7 @@ __all__ = [
     "ALL",
     "ColumnFamily",
     "CorruptRunError",
+    "DeadlineExceeded",
     "TransientFault",
     "TransientReadError",
     "TransientFlushError",

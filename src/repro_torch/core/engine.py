@@ -14,10 +14,10 @@ The modules of the paper's Figure 3, as far as the port carries them:
   Recovery          → rebuild lost replicas from the partition's commit log
                       or by re-sorting a survivor, in their own layouts
 
-It is the reference engine (``repro.core.engine``) without ring
-migration: the same cost matrices, tie rule and round-robin draws pick the
-same replica for every query, and the same write path produces the same
-tables. On a ``device_resident=True`` column family every replica's table
+It is the reference engine (``repro.core.engine``) on the port's classes:
+the same cost matrices, tie rule and round-robin draws pick the same
+replica for every query, the same write path produces the same tables and
+the same migrations the same rings. On a ``device_resident=True`` column family every replica's table
 lives as tensors on the engine's device: each ``read``/``read_many``
 replica group is one fused locate+scan launch (plus one select-compaction
 launch for selects with matches), each flush appends a run to the resident
@@ -67,10 +67,22 @@ Availability (the reference's layer, same semantics and counters):
   from the log; on a views column family it also audits the views against
   the resident tensors and rebuilds corrupt or missing ones.
 
-Features of the reference outside the port raise ``NotImplementedError``
-naming their ROADMAP.md item: ring migration (split, merge, rebalance, the
-drift trigger) and ``parallel_writes`` (Queue 1 item 4b), read deadlines
-(item 5).
+Ring migration (the reference's contract, ``_reshard``):
+``split_partition``, ``merge_partitions`` and ``rebalance`` move ring
+boundaries. A partition whose range is unchanged keeps its vnode, log,
+tables, memtables, statistics, cache and round-robin counter; every other
+range becomes a fresh vnode whose replicas are rebuilt from the
+token-sliced logs (staged rows ride along as log records), placed on the
+engine's device with their views built by ``block_sums``. A replica placed
+on a dead node is left for ``recover_node``. ``rebalance_imbalance`` arms
+the post-flush drift trigger on the token histogram.
+
+``write(parallel=True)`` and ``flush_memtables(parallel=True)`` map the
+per-replica flush (checksum verify, ``merge_run``, digest extension) over
+a shared pool of 8 threads; installation, views, memtable clears, cache
+invalidation and compaction stay serial after it. ``deadline_s`` bounds a
+read's latency budget: required work raises :class:`DeadlineExceeded`
+once it is spent, hedges are skipped.
 
 Batched reads (``read_many``) keep the reference's semantics exactly:
 the cost matrix over (replica, query) equals Q×R scalar estimates, one
@@ -86,6 +98,8 @@ import dataclasses
 import itertools
 import time
 import zlib
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -128,6 +142,7 @@ __all__ = [
     "TransientReadError",
     "TransientFlushError",
     "CorruptRunError",
+    "DeadlineExceeded",
     "ENGINE_COUNTERS",
     "resolve_device",
 ]
@@ -136,13 +151,6 @@ ONE = "ONE"
 QUORUM = "QUORUM"
 ALL = "ALL"
 CONSISTENCY_LEVELS = (ONE, QUORUM, ALL)
-
-
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item}); "
-        "the reference engine repro.core.HREngine has it"
-    )
 
 
 def resolve_device(device=None) -> torch.device:
@@ -182,6 +190,22 @@ class CorruptRunError(RuntimeError):
     """A flushed run failed its crc32 verification before merging."""
 
 
+class DeadlineExceeded(RuntimeError):
+    """A read's latency budget (``deadline_s``) was spent before the answer
+    was complete: the request is shed explicitly instead of served late.
+    Not a :class:`TransientFault`, so failover never swallows it."""
+
+    def __init__(self, budget_s: float | None = None) -> None:
+        what = (
+            "read deadline budget spent before the answer completed"
+            if budget_s is None
+            else f"read deadline budget of {budget_s * 1e3:.3f} ms spent "
+            "before the answer completed"
+        )
+        super().__init__(what)
+        self.budget_s = budget_s
+
+
 #: Registry counters every engine registers at construction, under the
 #: names the ``stats`` dict view exposes them by.
 ENGINE_COUNTERS = (
@@ -193,6 +217,11 @@ ENGINE_COUNTERS = (
     # (partition, query) pairs the scatter path skipped: the partition's
     # observed tokens provably miss the query's slab
     "empty_partition_skips",
+    # ring migration: boundaries added and removed, rows whose partition
+    # a migration rebuilt
+    "partition_splits",
+    "partition_merges",
+    "rebalance_rows_moved",
     # availability: writes that accrued a hint for a transiently-down
     # replica; node-up heals served from the hinted tail and full-rebuild
     # fallbacks; digest reads; failover retries; scrub activity
@@ -205,7 +234,8 @@ ENGINE_COUNTERS = (
     "read_retries",
     "scrub_checks",
     "scrub_repairs",
-    # faults raised, or survived by failover
+    # typed refusals, and faults raised or survived by failover
+    "deadline_exceeded",
     "read_faults",
     "flush_faults",
     "corrupt_runs",
@@ -217,6 +247,22 @@ ENGINE_COUNTERS = (
     "view_boundary_rows",
     "view_rebuilds",
 )
+
+# a parallel flush's pool threads share nodes' fault budgets, the failure
+# detector and the fault counters; each check-and-charge holds this lock
+_FLUSH_BOOKKEEPING = threading.Lock()
+
+
+def _deadline_at(deadline_s: float | None) -> float | None:
+    """Absolute ``perf_counter`` cutoff of a per-call budget (None =
+    unbounded); a budget <= 0 is spent before any work."""
+    if deadline_s is None:
+        return None
+    return time.perf_counter() + deadline_s
+
+
+def _deadline_spent(deadline_at: float | None) -> bool:
+    return deadline_at is not None and time.perf_counter() >= deadline_at
 
 
 @dataclasses.dataclass
@@ -390,13 +436,19 @@ class HREngine:
     kernels; pass ``device="cpu"`` to run the plain PyTorch versions.
     ``result_cache`` (default on) keeps a per-replica map ``(agg, value
     col, filter signature) → ScanResult``, fed by both ``read`` and
-    ``read_many``, bounded in entries (FIFO) and in retained select-index
-    bytes, and invalidated by flushes, compactions, node failure and
-    recovery; hit/miss counters are on :attr:`stats`. With
-    ``result_cache=False`` every read pays its scan. Every flushed run is
-    checksum-verified before it merges, every installed table carries a
-    sealed content checksum, and the default :class:`CompactionPolicy`
-    folds the run stack.
+    ``read_many``, bounded in entries (``_CACHE_MAX_ENTRIES``, FIFO) and
+    in retained select-index bytes, and invalidated by flushes,
+    compactions, migration, node failure and recovery; hit/miss counters
+    are on :attr:`stats`. With ``result_cache=False`` every read pays its
+    scan. Every flushed run is checksum-verified before it merges and
+    every installed table carries a sealed content checksum; column
+    families inherit the default :class:`CompactionPolicy`, and the
+    counters live on the engine's own :class:`MetricsRegistry`.
+
+    ``rebalance_imbalance`` > 0 arms
+    the drift trigger: after a write's flush, a partitioned column family
+    whose token histogram puts more than that multiple of the mean row
+    mass in one partition is rebalanced in place (0 = manual only).
 
     ``failure_detector`` (duck-typed: ``record``/``record_failure``/
     ``cost_factor``, see ``repro_torch.ft.detector``) is fed every executed
@@ -416,11 +468,10 @@ class HREngine:
         result_cache: bool = True,
         memtable_rows: int = 0,
         commitlog_checkpoint_records: int = 256,
+        rebalance_imbalance: float = 0.0,
         failure_detector=None,
         read_retry_limit: int | None = None,
         scan_timer=None,
-        parallel_writes: bool = False,
-        rebalance_imbalance: float = 0.0,
     ) -> None:
         if n_nodes < 1:
             raise ValueError("need at least one node")
@@ -431,6 +482,8 @@ class HREngine:
                 "commitlog_checkpoint_records must be >= 0 (0 = no "
                 "automatic checkpointing)"
             )
+        if rebalance_imbalance < 0:
+            raise ValueError("rebalance_imbalance must be >= 0 (0 = manual only)")
         # the limit counts attempts (first try included), so anything below
         # 1 would turn the first transient fault into an unanswerable query
         if read_retry_limit is not None and read_retry_limit < 1:
@@ -439,12 +492,6 @@ class HREngine:
                 "included; None = one attempt per live replica), got "
                 f"{read_retry_limit}"
             )
-        if parallel_writes:
-            raise _not_in_slice("parallel_writes", "Queue 1 item 4b")
-        if rebalance_imbalance < 0:
-            raise ValueError("rebalance_imbalance must be >= 0 (0 = manual only)")
-        if rebalance_imbalance > 0:
-            raise _not_in_slice("rebalance_imbalance (the drift trigger)", "Queue 1 item 4b")
         self.device = resolve_device(device)
         self.nodes = [Node(node_id=i) for i in range(n_nodes)]
         self.column_families: dict[str, ColumnFamily] = {}
@@ -452,11 +499,13 @@ class HREngine:
         self._result_cache: dict[tuple[str, int], dict] = {}
         # running total of selected-array bytes per replica map
         self._cache_sel_bytes: dict[tuple[str, int], int] = {}
+        self._pool: ThreadPoolExecutor | None = None
         self.memtable_rows = memtable_rows
         self.compaction = CompactionPolicy()
         # auto-checkpoint trigger: collapse the commit log after a flush
         # once more than this many records accumulated (0 disables)
         self.commitlog_checkpoint_records = commitlog_checkpoint_records
+        self.rebalance_imbalance = rebalance_imbalance
         self.failure_detector = failure_detector
         self._scan_timer = scan_timer if scan_timer is not None else time.perf_counter
         self.read_retry_limit = read_retry_limit
@@ -474,6 +523,9 @@ class HREngine:
         self._view_boundary_rows = self.metrics.counter("view_boundary_rows")
         self._view_rebuilds = self.metrics.counter("view_rebuilds")
         self._empty_partition_skips = self.metrics.counter("empty_partition_skips")
+        self._partition_splits = self.metrics.counter("partition_splits")
+        self._partition_merges = self.metrics.counter("partition_merges")
+        self._rebalance_rows_moved = self.metrics.counter("rebalance_rows_moved")
         self._hints_queued = self.metrics.counter("hints_queued")
         self._hint_replays = self.metrics.counter("hint_replays")
         self._hint_rows_replayed = self.metrics.counter("hint_rows_replayed")
@@ -483,8 +535,22 @@ class HREngine:
         self._read_retries = self.metrics.counter("read_retries")
         self._scrub_checks = self.metrics.counter("scrub_checks")
         self._scrub_repairs = self.metrics.counter("scrub_repairs")
+        self._deadline_exceeded = self.metrics.counter("deadline_exceeded")
         self._read_faults = self.metrics.counter("read_faults")
         self._flush_faults = self.metrics.counter("flush_faults")
+
+    @property
+    def _executor(self) -> ThreadPoolExecutor:
+        """The shared flush pool, created on the first parallel flush."""
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=8)
+        return self._pool
+
+    def __getstate__(self) -> dict:
+        # a thread pool cannot be copied or pickled; it is recreated on use
+        state = self.__dict__.copy()
+        state["_pool"] = None
+        return state
 
     # -- stats and result cache ----------------------------------------------
 
@@ -510,6 +576,18 @@ class HREngine:
     def reset_stats(self) -> None:
         """Zero every registry-backed counter in place."""
         self.metrics.reset()
+
+    def _check_deadline(self, deadline_at: float | None, budget_s: float | None) -> None:
+        """Raise :class:`DeadlineExceeded` (counted under
+        ``deadline_exceeded``) once the budget is spent. Called before each
+        unit of required work: a replica-group scan, a failover retry, a
+        digest read. Hedges are optional work and are skipped instead. On
+        a device-resident column family a group's answers are fetched to
+        the host before the next check reads the clock, so the budget
+        covers the device work the call waited for."""
+        if deadline_at is not None and time.perf_counter() >= deadline_at:
+            self._deadline_exceeded.inc()
+            raise DeadlineExceeded(budget_s)
 
     @staticmethod
     def _cache_keys(queries: list[Query]) -> list:
@@ -608,7 +686,10 @@ class HREngine:
         queries — slab filters forming a prefix of the layout — are then
         answered from the stored partials plus a rescan of at most the two
         window-edge blocks per run, bit-identical to the fused scan. Views
-        extend at flush and rebuild at compaction.
+        extend at flush and rebuild at compaction and migration.
+
+        ``memtable_rows`` (default: the engine's) is the group-commit
+        staging threshold, 0 = write-through.
 
         ``partitions`` splits the keyspace over a token ring
         (``core.ring``): each of ``P`` contiguous token ranges owns a full
@@ -813,13 +894,11 @@ class HREngine:
         return np.array([det.cost_factor(r.node_id) for r in live], dtype=np.float64)
 
     @staticmethod
-    def _check_read_options(consistency: str, deadline_s) -> None:
+    def _check_consistency(consistency: str) -> None:
         if consistency not in CONSISTENCY_LEVELS:
             raise ValueError(
                 f"unknown consistency {consistency!r} (expected one of {CONSISTENCY_LEVELS})"
             )
-        if deadline_s is not None:
-            raise _not_in_slice("deadline_s (read deadlines)", "Queue 1 item 5")
 
     def read(
         self,
@@ -840,15 +919,20 @@ class HREngine:
         to the next-ranked untried replica. With ``hedge=True`` a read that
         landed on a straggler (slowdown > ``hedge_ratio``) is duplicated on
         the cheapest replica on another node, and the faster copy wins.
-        ``trace`` (an open span, or None) hangs an ``engine.read`` subtree
-        under the caller's."""
-        self._check_read_options(consistency, deadline_s)
+        ``deadline_s`` is the call's latency budget: the scan and each
+        failover retry check it first and raise :class:`DeadlineExceeded`
+        once it is spent; the hedge is skipped instead (None = unbounded,
+        a budget <= 0 sheds before any scan). ``trace`` (an open span, or
+        None) hangs an ``engine.read`` subtree under the caller's."""
+        self._check_consistency(consistency)
         cf = self.column_families[cf_name]
         if cf.ring.n_partitions > 1 or consistency != ONE:
             return self.read_many(
                 cf_name, [query], hedge=hedge, hedge_ratio=hedge_ratio,
-                consistency=consistency, trace=trace,
+                consistency=consistency, deadline_s=deadline_s, trace=trace,
             )[0]
+        deadline = _deadline_at(deadline_s)
+        self._check_deadline(deadline, deadline_s)
         span = (
             trace.child("engine.read", cf=cf_name, level=consistency)
             if trace is not None
@@ -874,6 +958,7 @@ class HREngine:
                     break
                 except TransientFault:
                     self._read_retries.inc()
+                    self._check_deadline(deadline, deadline_s)
                     entry = next((t for t in ranked if t[2].replica_id not in tried), None)
                     if entry is None or len(tried) >= limit:
                         raise RuntimeError(
@@ -884,6 +969,7 @@ class HREngine:
                 hedge
                 and len(ranked) > 1
                 and self.nodes[report.node_id].slowdown > hedge_ratio
+                and not _deadline_spent(deadline)  # a hedge is optional work
             ):
                 alt = next((t for t in ranked if t[2].node_id != report.node_id), None)
                 if alt is not None:
@@ -952,12 +1038,18 @@ class HREngine:
         on each query in sequence. ``hedge`` duplicates straggler-bound
         queries (:meth:`_hedge_groups`); ``consistency="QUORUM"``/``"ALL"``
         adds digest reads with read repair (:meth:`_consistency_pass`), and
-        the returned result is always the digest-majority answer."""
-        self._check_read_options(consistency, deadline_s)
+        the returned result is always the digest-majority answer.
+        ``deadline_s`` bounds the whole batch: group scans, failover
+        retries and digest reads raise :class:`DeadlineExceeded` once the
+        budget is spent, hedges are skipped; a deadline never triggers
+        failover."""
+        self._check_consistency(consistency)
         cf = self.column_families[cf_name]
         queries = list(queries)
         if not queries:
             return []
+        deadline = _deadline_at(deadline_s)
+        self._check_deadline(deadline, deadline_s)
         span = (
             trace.child(
                 "engine.read_many", cf=cf_name, queries=len(queries), level=consistency
@@ -969,7 +1061,8 @@ class HREngine:
             if cf.ring.n_partitions > 1:
                 return self._read_many_partitioned(
                     cf, queries, hedge=hedge, hedge_ratio=hedge_ratio,
-                    consistency=consistency, trace=span,
+                    consistency=consistency, deadline_at=deadline, budget_s=deadline_s,
+                    trace=span,
                 )
             live = [r for r in cf.replicas if self.nodes[r.node_id].alive]
             if not live:
@@ -1016,9 +1109,9 @@ class HREngine:
             reports: list[ReadReport | None] = [None] * n_q
             self._run_groups(
                 cf, live, order_mat, picks, all_q, queries, rows_mat, cost_mat,
-                results, reports, trace=span,
+                results, reports, deadline_at=deadline, budget_s=deadline_s, trace=span,
             )
-            if hedge and len(live) > 1:
+            if hedge and len(live) > 1 and not _deadline_spent(deadline):
                 # duplicate straggler-bound queries onto the cheapest replica
                 # on another node; a faulting hedge is dropped, never failed
                 # over (the primary result stands)
@@ -1033,7 +1126,7 @@ class HREngine:
             if consistency != ONE:
                 self._consistency_pass(
                     cf, cf.partitions[0], live, order_mat, all_q, queries, results, reports,
-                    consistency, trace=span,
+                    consistency, deadline_at=deadline, budget_s=deadline_s, trace=span,
                 )
             return list(zip(results, reports))  # type: ignore[arg-type]
         finally:
@@ -1053,6 +1146,8 @@ class HREngine:
         results: list,
         reports: list,
         *,
+        deadline_at: float | None = None,
+        budget_s: float | None = None,
         trace=None,
     ) -> None:
         """Primary grouped execution with bounded failover: the queries of
@@ -1060,12 +1155,14 @@ class HREngine:
         replica in their cost order not yet tried (``read_retries`` counts
         each re-routed query), up to ``read_retry_limit`` attempts per query
         (default: one per live replica). Scheduler column ``j`` of
-        ``order`` is global query ``qidx[j]``."""
+        ``order`` is global query ``qidx[j]``. A spent ``deadline_at``
+        budget raises :class:`DeadlineExceeded` before the next group."""
         col_of = {qi: j for j, qi in enumerate(qidx)}
         limit = len(live) if self.read_retry_limit is None else self.read_retry_limit
         tried: dict[int, set[int]] = {qi: set() for qi in qidx}
         queue = [(k, sub, False) for k, sub in _group_by_pick(picks, qidx).items()]
         while queue:
+            self._check_deadline(deadline_at, budget_s)
             k, sub, is_retry = queue.pop(0)
             for qi in sub:
                 tried[qi].add(k)
@@ -1240,6 +1337,8 @@ class HREngine:
         reports: list,
         consistency: str,
         *,
+        deadline_at: float | None = None,
+        budget_s: float | None = None,
         trace=None,
     ) -> None:
         """Digest reads: execute each query on the next cost-ranked replicas
@@ -1249,7 +1348,8 @@ class HREngine:
         result is re-pointed at a majority replica when the primary was the
         outlier); with no majority, the log is the ground truth: every
         consulted replica is rebuilt and the query re-executes on the
-        primary."""
+        primary. Digest reads are required work: a spent budget raises
+        :class:`DeadlineExceeded` before each."""
         k = self._consistency_k(consistency, len(part.replicas))
         if k <= 1:
             return
@@ -1282,6 +1382,7 @@ class HREngine:
         alt_scans: dict[int, list[tuple[ReplicaHandle, ScanResult]]] = {}
         queue = list(alt_groups.items())
         while queue:
+            self._check_deadline(deadline_at, budget_s)
             x, sub = queue.pop(0)
             for qi in sub:
                 consulted[qi].add(x)
@@ -1411,6 +1512,8 @@ class HREngine:
         hedge: bool = False,
         hedge_ratio: float = 2.0,
         consistency: str = ONE,
+        deadline_at: float | None = None,
+        budget_s: float | None = None,
         trace=None,
     ) -> list[tuple[ScanResult, ReadReport]]:
         """Scatter-gather ``read_many`` over a partitioned column family.
@@ -1456,6 +1559,7 @@ class HREngine:
         n_slots = len(cf.slot_layouts)
         partials: dict[int, tuple[list, list]] = {}
         for pid in sorted(touched):
+            self._check_deadline(deadline_at, budget_s)
             ps = trace.child("engine.partition", partition=pid) if trace is not None else None
             part = cf.partitions[pid]
             qidx = touched[pid]
@@ -1500,9 +1604,9 @@ class HREngine:
             cost_live = cost_mat[slots]
             self._run_groups(
                 cf, live, order, picks, qidx, queries, rows_live, cost_live, res_p, rep_p,
-                trace=ps,
+                deadline_at=deadline_at, budget_s=budget_s, trace=ps,
             )
-            if hedge and len(live) > 1:
+            if hedge and len(live) > 1 and not _deadline_spent(deadline_at):
                 for k, sub in self._hedge_groups(live, order, picks, qidx, hedge_ratio).items():
                     try:
                         self._execute_group(
@@ -1513,7 +1617,8 @@ class HREngine:
                         continue  # a best-effort duplicate
             if consistency != ONE:
                 self._consistency_pass(
-                    cf, part, live, order, qidx, queries, res_p, rep_p, consistency, trace=ps,
+                    cf, part, live, order, qidx, queries, res_p, rep_p, consistency,
+                    deadline_at=deadline_at, budget_s=budget_s, trace=ps,
                 )
             if ps is not None:
                 ps.end()
@@ -1560,7 +1665,7 @@ class HREngine:
 
     def partition_imbalance(self, cf_name: str) -> float:
         """Max/mean committed-row imbalance across the ring (1.0 =
-        perfectly balanced)."""
+        perfectly balanced); ``rebalance`` reports it before and after."""
         cf = self.column_families[cf_name]
         rows = np.array([p.n_rows_committed for p in cf.partitions], dtype=np.float64)
         total = rows.sum()
@@ -1576,6 +1681,8 @@ class HREngine:
         key_cols: Mapping[str, np.ndarray],
         value_cols: Mapping[str, np.ndarray],
         *,
+        parallel: bool = False,
+        flush: bool | None = None,
         trace=None,
     ) -> float:
         """Commit a batch write through the durable path and refresh
@@ -1583,7 +1690,9 @@ class HREngine:
         column family's commit log, (2) staged into each live replica's
         memtable, and (3) flushed as one sorted run per replica when the
         staging threshold is reached (``memtable_rows``; 0 =
-        write-through). On a device-resident column family the statistics
+        write-through). ``flush`` forces (True) or defers (False) step 3;
+        ``parallel`` runs the per-replica flushes on the engine's thread
+        pool. On a device-resident column family the statistics
         refresh runs the histogram kernel on the engine's device, each
         flush appends its run to the resident tensors, and the compaction
         policy merges the run stack on the device once it outgrows the
@@ -1595,10 +1704,10 @@ class HREngine:
         family), each owning partition's sub-batch becomes one record in
         that partition's commit log, stages into that partition's
         replicas only and merges into that partition's statistics. The
-        threshold check spans every live replica of the column family. The
-        reference's post-flush rebalance trigger (its
-        ``rebalance_imbalance``, off by default) comes with ``rebalance``
-        (ROADMAP.md Queue 1 item 4b); until then it stays off here.
+        threshold check spans every live replica of the column family.
+        After a flush, with ``rebalance_imbalance`` > 0, a column family
+        whose token histogram puts more than that multiple of the mean row
+        mass in one partition is rebalanced in place (:meth:`rebalance`).
 
         A replica on a down node neither stages nor flushes: the log holds
         the rows it missed, and a write while its hint is open counts under
@@ -1660,16 +1769,28 @@ class HREngine:
         if ms is not None:
             ms.end()
         live = [r for r in cf.replicas if self.nodes[r.node_id].alive]
-        if cf.memtable_rows <= 0 or any(
-            self._memtable(cf, r).n_staged >= cf.memtable_rows for r in live
-        ):
-            self._flush_replicas(cf, live, trace=w)
+        if flush is None:
+            flush = cf.memtable_rows <= 0 or any(
+                self._memtable(cf, r).n_staged >= cf.memtable_rows for r in live
+            )
+        if flush:
+            self._flush_replicas(cf, live, parallel=parallel, trace=w)
+            # the drift trigger: post-flush only, so a migration (which
+            # replays logs) never races staged state
+            if (
+                self.rebalance_imbalance > 0
+                and cf.ring.n_partitions > 1
+                and cf.token_hist is not None
+                and cf.token_hist.imbalance(cf.ring.starts) > self.rebalance_imbalance
+            ):
+                self.rebalance(cf_name)
         if w is not None:
             w.end()
         return time.perf_counter() - t0
 
     def _flush_replicas(
-        self, cf: ColumnFamily, replicas: Sequence[ReplicaHandle], *, trace=None,
+        self, cf: ColumnFamily, replicas: Sequence[ReplicaHandle], *,
+        parallel: bool = False, trace=None,
     ) -> None:
         """Flush the given replicas' staged rows: one sorted run per
         replica (in its own layout), checksum-verified and merged via
@@ -1679,7 +1800,17 @@ class HREngine:
         stay staged; so do those of a node whose ``flush_fault_budget``
         makes the flush raise :class:`TransientFlushError`. On a views
         column family ``merge_run`` extends each replica's view and
-        compaction rebuilds it (``view_rebuilds``)."""
+        compaction rebuilds it (``view_rebuilds``).
+
+        ``parallel`` maps the per-replica part (verify, ``merge_run``,
+        digest extension) over the engine's thread pool; every replica
+        has its own table and tensors, and each wrapper launches on its
+        calling thread's current stream. The fault budgets and the fault
+        counters the threads share are charged under a lock, so a parallel
+        flush counts what a serial one would; it returns or raises only
+        after every replica's part has ended. Installation, views,
+        memtable clears, cache invalidation and compaction stay serial, in
+        replica order."""
         pending = [
             r for r in replicas
             if self.nodes[r.node_id].alive and self._memtable(cf, r).n_staged
@@ -1687,9 +1818,11 @@ class HREngine:
         if not pending:
             return
         t0 = time.perf_counter()
-        for r in pending:
+
+        def _flush(r: ReplicaHandle) -> tuple[ReplicaHandle, SortedTable]:
             # peek, don't drain: the memtable is cleared only after the
-            # merged table is installed, so an exception never loses rows
+            # merged table is installed, so an exception (here or in a
+            # sibling thread) never loses rows
             node = self.nodes[r.node_id]
             fs = (
                 trace.child(
@@ -1700,15 +1833,21 @@ class HREngine:
                 else None
             )
             try:
-                if node.flush_fault_budget > 0:
-                    node.flush_fault_budget -= 1
-                    if self.failure_detector is not None:
-                        self.failure_detector.record_failure(node.node_id)
-                    self._flush_faults.inc()
+                # the fault budget is shared by a node's replicas, and the
+                # counters by every thread: check, charge and count as one
+                with _FLUSH_BOOKKEEPING:
+                    faulted = node.flush_fault_budget > 0
+                    if faulted:
+                        node.flush_fault_budget -= 1
+                        if self.failure_detector is not None:
+                            self.failure_detector.record_failure(node.node_id)
+                        self._flush_faults.inc()
+                if faulted:
                     raise TransientFlushError(node.node_id)
                 run = self._memtable(cf, r).peek_run()
                 if not run.verify():
-                    self._corrupt_runs.inc()
+                    with _FLUSH_BOOKKEEPING:
+                        self._corrupt_runs.inc()
                     raise CorruptRunError(
                         f"flush of {cf.name!r} replica {r.replica_id}: sorted "
                         "run failed its checksum"
@@ -1730,10 +1869,22 @@ class HREngine:
                 raise
             if fs is not None:
                 fs.end()
+            return r, merged
+
+        if parallel and len(pending) > 1:
+            # every replica's work ends before the first error is raised,
+            # so no merge of a failed flush still appends to a table's
+            # tensors while the caller retries
+            futures = [self._executor.submit(_flush, r) for r in pending]
+            wait(futures)
+            merged_tables = [f.result() for f in futures]
+        else:
+            merged_tables = [_flush(r) for r in pending]
+        for r, merged in merged_tables:
             if cf.device_resident and not merged.device_resident:
                 merged.place_on_device(self.device)
             self._ensure_views(cf, merged)
-            node.tables[(cf.name, r.replica_id)] = merged
+            self.nodes[r.node_id].tables[(cf.name, r.replica_id)] = merged
             self._memtable(cf, r).clear()
             self._flushes.inc()
             part = cf.partitions[r.partition_id]
@@ -1801,10 +1952,12 @@ class HREngine:
                 self._flush_replicas(cf, [r], trace=fb)
                 fb.end()
 
-    def flush_memtables(self, cf_name: str) -> None:
-        """Drain every live replica's memtable (group-commit flush)."""
+    def flush_memtables(self, cf_name: str, *, parallel: bool = False) -> None:
+        """Drain every live replica's memtable (group-commit flush);
+        ``parallel`` runs the per-replica flushes on the thread pool."""
         cf = self.column_families[cf_name]
-        self._flush_replicas(cf, [r for r in cf.replicas if self.nodes[r.node_id].alive])
+        live = [r for r in cf.replicas if self.nodes[r.node_id].alive]
+        self._flush_replicas(cf, live, parallel=parallel)
 
     def checkpoint_commitlog(self, cf_name: str) -> int:
         """Flush every live replica, then collapse each partition's commit
@@ -2032,16 +2185,196 @@ class HREngine:
                     repaired += 1
         return {"replicas_checked": checked, "corrupt": corrupt, "repaired": repaired}
 
-    # -- outside the port ------------------------------------------------------------
+    # -- ring migration (vnode split / merge / rebalance) ---------------------------
 
-    def split_partition(self, cf_name: str, *args, **kwargs) -> None:
-        raise _not_in_slice("split_partition", "Queue 1 item 4b")
+    def split_partition(self, cf_name: str, partition_id: int, token: int | None = None) -> int:
+        """Online split: cut one partition's token range in two at
+        ``token`` (rows with canonical token >= ``token`` go to the right
+        child); by default at the partition's median committed token, the
+        cut that halves its rows. Both children are fresh vnodes rebuilt
+        from token-sliced copies of the parent's log (:meth:`_reshard`);
+        every other partition is untouched. Returns the cut token."""
+        cf = self.column_families[cf_name]
+        part = cf.partitions[partition_id]
+        if token is None:
+            kc, _ = part.commitlog.replay_columns()
+            toks = np.sort(pack_columns(kc, cf.key_names, cf.schema))
+            if toks.size:
+                token = int(toks[toks.size // 2])
+            else:
+                token = (part.token_lo + part.token_hi + 1) // 2
+            # a median equal to the range start cannot form a boundary
+            token = max(token, part.token_lo + 1)
+        token = int(token)
+        if not part.token_lo < token <= part.token_hi:
+            raise ValueError(
+                f"split token {token} outside partition {partition_id}'s "
+                f"range ({part.token_lo}, {part.token_hi}]"
+            )
+        self._reshard(cf, sorted(cf.ring.starts + (token,)))
+        return token
 
-    def merge_partitions(self, cf_name: str, *args, **kwargs) -> None:
-        raise _not_in_slice("merge_partitions", "Queue 1 item 4b")
+    def merge_partitions(self, cf_name: str, partition_id: int) -> None:
+        """Online merge: fuse ring-adjacent partitions ``partition_id`` and
+        ``partition_id + 1`` into one fresh vnode whose log is the two
+        logs concatenated in ring order (:meth:`_reshard`)."""
+        cf = self.column_families[cf_name]
+        if partition_id + 1 >= cf.ring.n_partitions:
+            raise ValueError(f"partition {partition_id} has no right neighbor to merge with")
+        starts = list(cf.ring.starts)
+        del starts[partition_id + 1]
+        self._reshard(cf, starts)
 
-    def rebalance(self, cf_name: str, *args, **kwargs) -> int:
-        raise _not_in_slice("rebalance", "Queue 1 item 4b")
+    def rebalance(self, cf_name: str, *, partitions: int | None = None, exact: bool = True) -> dict:
+        """Move the ring boundaries to the committed rows' token quantiles,
+        so each partition owns ~1/P of the rows (one ring-wide reshard).
+        ``partitions`` changes P (default: keep it). ``exact=True`` takes
+        quantiles of the exact committed tokens replayed from the logs;
+        ``exact=False`` the token histogram's proposal (one bin's
+        resolution). Partitions whose range is unchanged keep all state.
+        Returns ``{"partitions", "imbalance_before", "imbalance_after",
+        "rows_moved"}``; a no-op (0 rows moved) when the boundaries come
+        out unchanged."""
+        cf = self.column_families[cf_name]
+        n_parts = cf.ring.n_partitions if partitions is None else int(partitions)
+        before = self.partition_imbalance(cf_name)
+        if exact or cf.token_hist is None:
+            toks = np.concatenate([
+                pack_columns(p.commitlog.replay_columns()[0], cf.key_names, cf.schema)
+                for p in cf.partitions
+            ])
+            new_ring = TokenRing.from_tokens(cf.schema, cf.key_names, toks, n_parts)
+        else:
+            new_ring = TokenRing.from_histogram(cf.schema, cf.key_names, cf.token_hist, n_parts)
+        moved = 0
+        if new_ring.starts != cf.ring.starts:
+            moved = self._reshard(cf, new_ring.starts)
+        return {
+            "partitions": n_parts,
+            "imbalance_before": before,
+            "imbalance_after": self.partition_imbalance(cf_name),
+            "rows_moved": moved,
+        }
+
+    def _reshard(self, cf: ColumnFamily, new_starts: Sequence[int]) -> int:
+        """Rebuild the ring around new boundaries; returns the rows moved.
+
+        * A partition whose inclusive ``[lo, hi]`` range is unchanged is
+          kept: same vnode, log, tables, memtables, statistics, cache,
+          round-robin counter, hints and watermarks; only its
+          ``partition_id`` is renumbered.
+        * Every other range is a fresh vnode whose log is the token-sliced
+          concatenation (ring order, fresh LSNs) of the overlapping old
+          logs, and whose replica tables replay it in their layouts (the
+          ``recover_node(source="log")`` path). Staged rows ride along as
+          log records, so the fresh memtables start empty; the fresh
+          partition has no hints and its watermarks sit at the new log's
+          tail. On a device-resident column family each table is placed on
+          the engine's device and, with views, its view built.
+        * A replica placed on a dead node is not installed
+          (``recover_node`` rebuilds it from the new log). Only the
+          migrated replica ids lose their node tables and cached results,
+          which releases their tensors.
+
+        Counters: each boundary the new ring adds is a split, each it drops
+        a merge; the committed rows of every rebuilt partition count as
+        moved."""
+        new_ring = cf.ring.with_starts(new_starts)
+        old_parts = list(cf.partitions)
+        old_ranges = [(p.token_lo, p.token_hi) for p in old_parts]
+        old_by_range = dict(zip(old_ranges, old_parts))
+        rf = cf.replication_factor
+        new_parts: list[Partition] = []
+        rows_moved = 0
+        for pid in range(new_ring.n_partitions):
+            nlo, nhi = new_ring.token_range(pid)
+            kept = old_by_range.get((nlo, nhi))
+            if kept is not None:
+                kept.partition_id = pid
+                for r in kept.replicas:
+                    r.partition_id = pid
+                new_parts.append(kept)
+                continue
+            overlap = [
+                p for p, (olo, ohi) in zip(old_parts, old_ranges) if not (ohi < nlo or olo > nhi)
+            ]
+
+            def in_range(kc, _lo=nlo, _hi=nhi):
+                t = pack_columns(kc, cf.key_names, cf.schema)
+                return (t >= _lo) & (t <= _hi)
+
+            log = CommitLog.concatenated([p.commitlog.sliced(in_range) for p in overlap])
+            kc, vc = log.replay_columns()
+            toks = pack_columns(kc, cf.key_names, cf.schema)
+            # a pure union of whole old ranges adds their histograms
+            # bin-wise (disjoint rows); a cut range recomputes from its rows
+            if (
+                len(overlap) > 1
+                and overlap[0].token_lo == nlo
+                and overlap[-1].token_hi == nhi
+                and all(p.stats is not None for p in overlap)
+            ):
+                stats_p = overlap[0].stats
+                for p in overlap[1:]:
+                    stats_p = stats_p.merged_with(p.stats)
+            else:
+                stats_p = TableStats.from_columns(kc, cf.schema)
+            vnode = cf.next_vnode
+            cf.next_vnode += 1
+            handles: list[ReplicaHandle] = []
+            memtables: dict[int, Memtable] = {}
+            flushed_lsn: dict[int, int] = {}
+            for slot, layout in enumerate(cf.slot_layouts):
+                rid = vnode * rf + slot
+                node_id = self._place(rid, cf.name)
+                if self.nodes[node_id].alive:
+                    table = SortedTable.from_columns(kc, vc, layout, cf.schema)
+                    if cf.device_resident:
+                        table.place_on_device(self.device)
+                    # a resharded vnode's view is built over its sliced
+                    # rows; kept vnodes keep theirs
+                    self._ensure_views(cf, table)
+                    table.seal_checksum()
+                    self.nodes[node_id].tables[(cf.name, rid)] = table
+                    flushed_lsn[rid] = log.next_lsn
+                handles.append(ReplicaHandle(rid, tuple(layout), node_id, partition_id=pid))
+                memtables[rid] = Memtable(layout, cf.schema, cf.key_names, cf.value_names)
+            part = Partition(
+                partition_id=pid,
+                token_lo=nlo,
+                token_hi=nhi,
+                replicas=handles,
+                commitlog=log,
+                memtables=memtables,
+                compaction=overlap[0].compaction if overlap else cf.compaction,
+                vnode_id=vnode,
+                stats=stats_p,
+                flushed_lsn=flushed_lsn,
+            )
+            part.observe_tokens(toks)
+            new_parts.append(part)
+            rows_moved += log.n_rows
+
+        # retire the migrated partitions: their replica ids vanish, and with
+        # them their node tables (and tensors) and cached results; kept
+        # partitions' caches stay warm
+        kept_ids = {id(p) for p in new_parts}
+        for part in old_parts:
+            if id(part) in kept_ids:
+                continue
+            for r in part.replicas:
+                self.nodes[r.node_id].tables.pop((cf.name, r.replica_id), None)
+                self._result_cache.pop((cf.name, r.replica_id), None)
+                self._cache_sel_bytes.pop((cf.name, r.replica_id), None)
+            part.memtables.clear()
+
+        old_set, new_set = set(cf.ring.starts), set(new_ring.starts)
+        self._partition_splits.inc(len(new_set - old_set))
+        self._partition_merges.inc(len(old_set - new_set))
+        self._rebalance_rows_moved.inc(rows_moved)
+        cf.ring = new_ring
+        cf.partitions = new_parts
+        return rows_moved
 
     # -- introspection -------------------------------------------------------------
 

@@ -25,8 +25,11 @@ Placement onto nodes is the deterministic crc32 scheme of
 so partition 0 of a ``P = 1`` column family places exactly where the
 unpartitioned engine does, and every replica lands on the node the
 reference engine (``repro.core.ring``) puts it on. ``Partition.flushed_lsn``
-and ``Partition.hints`` carry the engine's hinted handoff. Migration
-(split, merge, rebalance) is not ported yet (ROADMAP.md Queue 1 item 4b).
+and ``Partition.hints`` carry the engine's hinted handoff. The engine's
+migration (split, merge, rebalance) builds its new rings with
+:meth:`TokenRing.with_starts`, :meth:`TokenRing.from_tokens` and
+:meth:`TokenRing.from_histogram`, and gives every fresh partition a
+``vnode_id`` never used before.
 """
 
 from __future__ import annotations

@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "check", "load"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "check", "count_launch", "load"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -36,6 +36,16 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# guards the wrappers' launch counts and host-side scratch caches: the
+# engine's parallel flush launches from several threads
+wrapper_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (each wrapper calls this where it
+    launches its kernel, and nowhere else), exactly under threads."""
+    with wrapper_lock:
+        wrapper.launches += 1
 
 
 def _nvcc() -> str:

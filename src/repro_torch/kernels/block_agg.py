@@ -189,7 +189,7 @@ def block_sums(
         n_blocks, out.data_ptr(), torch.cuda.current_stream(values.device).cuda_stream,
     )
     _build.check(code, "block_sums_launch")
-    block_sums.launches += 1
+    _build.count_launch(block_sums)
     return out
 
 
@@ -271,7 +271,7 @@ def boundary_block_sums(
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(code, "boundary_sums_launch")
-    boundary_block_sums.launches += 1
+    _build.count_launch(boundary_block_sums)
     return out
 
 

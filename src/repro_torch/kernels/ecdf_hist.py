@@ -91,16 +91,17 @@ def _launch(cols: torch.Tensor, n_bins: list[int], widths: list[int], out: torch
     scratch = 0
     if ctas > 1:
         key = (cols.device.index, stream)
-        if key not in _scratch:
-            _scratch[key] = torch.zeros(MAX_COLS * MAX_BINS + MAX_COLS, dtype=torch.int32, device=cols.device)
-        scratch = _scratch[key].data_ptr()
+        with _build.wrapper_lock:
+            if key not in _scratch:
+                _scratch[key] = torch.zeros(MAX_COLS * MAX_BINS + MAX_COLS, dtype=torch.int32, device=cols.device)
+            scratch = _scratch[key].data_ptr()
     lib = _build.load("ecdf_hist", _SIG)
     code = lib.ecdf_hist_launch(
         cols.data_ptr(), n, n_cols, (ctypes.c_int32 * n_cols)(*n_bins),
         (ctypes.c_int32 * n_cols)(*widths), ctas, scratch, out.data_ptr(), stream,
     )
     _build.check(code, "ecdf_hist_launch")
-    ecdf_hist.launches += 1
+    _build.count_launch(ecdf_hist)
 
 
 def ecdf_hist_many(

@@ -153,7 +153,7 @@ def merge_run_positions(
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(code, "merge_rank_launch")
-    merge_run_positions.launches += 1
+    _build.count_launch(merge_run_positions)
     return out
 
 

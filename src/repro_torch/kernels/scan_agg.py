@@ -156,7 +156,7 @@ def scan_agg_rowstream(
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(code, "rowstream_launch")
-    scan_agg_rowstream.launches += 1
+    _build.count_launch(scan_agg_rowstream)
     return out
 
 
@@ -220,7 +220,7 @@ def scan_agg_qgrid(
         out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(code, "qgrid_launch")
-    scan_agg_qgrid.launches += 1
+    _build.count_launch(scan_agg_qgrid)
     return out
 
 

@@ -388,7 +388,7 @@ def scan_agg_locate(
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(code, "scan_locate_launch")
-    scan_agg_locate.launches += 1
+    _build.count_launch(scan_agg_locate)
     return out_s, out_m, out_c
 
 
@@ -473,7 +473,7 @@ def select_compact(
         out.data_ptr(), _raw_stream(device),
     )
     _build.check(code, "select_compact_launch")
-    select_compact.launches += 1
+    _build.count_launch(select_compact)
     return out
 
 
@@ -588,7 +588,7 @@ def slab_locate(
         limits.data_ptr(), q, out.data_ptr(), _raw_stream(device),
     )
     _build.check(code, "slab_rank_launch")
-    slab_locate.launches += 1
+    _build.count_launch(slab_locate)
     return out
 
 

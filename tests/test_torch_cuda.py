@@ -1018,3 +1018,114 @@ def test_recovered_replica_equals_a_fresh_build(cuda_device):
     eng.node_up(r.node_id)
     assert eng.stats["hint_rows_replayed"] == len(wk["custkey"])
     assert len({eng._table(cf, p).dataset_fingerprint() for p in cf.replicas}) == 1
+
+
+# -- ring migration, parallel flushes --------------------------------------------------
+
+
+def _views_family(device, *, partitions=2, seed=50, n=40_000, **engine_kw):
+    """A resident views column family "cf" of ``n`` TPC-H orders rows at
+    ``partitions`` token-quantile partitions, RF 3, on ``device``."""
+    kc, vc = generate_orders(n / 1.5e6, seed=seed)
+    eng = T.HREngine(n_nodes=5, device=device, **engine_kw)
+    eng.create_column_family(
+        "cf", kc, vc, replication_factor=3, schema=orders_schema(), device_resident=True, views=True,
+        layouts=[("custkey", "orderdate", "clerk"), ("clerk", "orderdate", "custkey"), ("orderdate", "custkey", "clerk")],
+        partitions=partitions, partition_balance="tokens",
+    )
+    return eng, kc, vc
+
+
+def _migration_queries():
+    qs = [T.Query({"custkey": T.Range(lo, lo + 4000)}, "sum", "totalprice") for lo in range(0, 60_000, 6000)]
+    qs += [T.Query({"clerk": T.Range(lo, lo + 3)}, "count") for lo in range(0, 900, 150)]
+    qs += [T.Query({"orderdate": T.Eq(d)}, "select") for d in (5, 700, 2400)]
+    return qs
+
+
+@pytest.mark.cuda
+def test_migration_of_a_views_family_on_the_card_matches_the_cpu(cuda_device):
+    """A split and a rebalance of a resident views family on the card: the
+    same ring, rows moved and answers as on the CPU (sums within rtol 1e-5
+    / atol 1e-3), the rebuilt tables on the card with their views built by
+    the ``block_sums`` kernel, and every replica's view-served answers
+    equal to the fused kernel on that table bit for bit."""
+    eng, _, _ = _views_family(cuda_device)
+    twin, _, _ = _views_family("cpu")
+    qs = _migration_queries()
+    for step in ("split", "rebalance"):
+        launches = K.KERNELS["block_sums"].launches
+        if step == "split":
+            assert eng.split_partition("cf", 0) == twin.split_partition("cf", 0)
+        else:
+            assert eng.rebalance("cf", partitions=3) == twin.rebalance("cf", partitions=3)
+        cf, tcf = eng.column_families["cf"], twin.column_families["cf"]
+        assert cf.ring.starts == tcf.ring.starts
+        assert eng.stats["rebalance_rows_moved"] == twin.stats["rebalance_rows_moved"]
+        assert K.KERNELS["block_sums"].launches > launches
+        for a, b in zip(eng.read_many("cf", qs), twin.read_many("cf", qs)):
+            assert a[1].replica_id == b[1].replica_id
+            assert (a[0].rows_matched, a[0].rows_scanned) == (b[0].rows_matched, b[0].rows_scanned)
+            np.testing.assert_allclose(a[0].value, b[0].value, rtol=1e-5, atol=1e-3)
+            if a[0].selected is not None:
+                np.testing.assert_array_equal(a[0].selected, b[0].selected)
+        for r in cf.replicas:
+            t = eng._table(cf, r)
+            assert t._device["keys"].is_cuda and verify_views(t)
+            eligible = [q for q in qs if t._view_eligible(q)]
+            for a, b in zip(t.execute_many(eligible), ops.table_execute_device_many(t, eligible)):
+                assert (a.value, a.rows_matched, a.rows_scanned) == (b.value, b.rows_matched, b.rows_scanned)
+
+
+@pytest.mark.cuda
+def test_parallel_flush_on_the_card_equals_a_serial_one(cuda_device):
+    """Group-commit writes flushed on the pool leave every replica's key
+    lanes, value tile, row map and view partials on the card array-equal
+    to a serial flush of the same rows."""
+    par, _, _ = _views_family(cuda_device, partitions=1, memtable_rows=3_000)
+    ser, _, _ = _views_family(cuda_device, partitions=1, memtable_rows=3_000)
+    wk, wv = generate_orders(10_000 / 1.5e6, seed=51)
+    for i in range(5):
+        part_k = {c: v[i * 2000:(i + 1) * 2000] for c, v in wk.items()}
+        part_v = {c: v[i * 2000:(i + 1) * 2000] for c, v in wv.items()}
+        par.write("cf", part_k, part_v, parallel=True)
+        ser.write("cf", part_k, part_v, parallel=False)
+    par.flush_memtables("cf", parallel=True)
+    ser.flush_memtables("cf")
+    assert par._pool is not None and par.stats["memtable_flushes"] == ser.stats["memtable_flushes"]
+    pcf, scf = par.column_families["cf"], ser.column_families["cf"]
+    for rp, rs in zip(pcf.replicas, scf.replicas):
+        a, b = par._table(pcf, rp)._device, ser._table(scf, rs)._device
+        n = a["n_rows"]
+        assert n == b["n_rows"] and a["run_starts"] == b["run_starts"]
+        assert torch.equal(a["keys"][:, :n], b["keys"][:, :n])
+        assert torch.equal(a["values_tile"][:, :n], b["values_tile"][:, :n])
+        assert (a["row_map"] is None) == (b["row_map"] is None)
+        if a["row_map"] is not None:
+            np.testing.assert_array_equal(a["row_map"], b["row_map"])
+        np.testing.assert_array_equal(a["views"]["block_sums"], b["views"]["block_sums"])
+
+
+@pytest.mark.cuda
+def test_rebalance_releases_the_retired_tables(cuda_device):
+    """A rebalance that moves every row (P = 2 to P = 3) frees the retired
+    tables' tensors: the allocation ends within a few blocks of where it
+    began, while its peak held old and new tables together."""
+    eng, _, _ = _views_family(cuda_device, n=200_000, result_cache=False)
+    eng.read_many("cf", _migration_queries())
+    cf = eng.column_families["cf"]
+    resident = sum(
+        eng._table(cf, r)._device["keys"].nbytes + eng._table(cf, r)._device["values_tile"].nbytes
+        for r in cf.replicas
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    info = eng.rebalance("cf", partitions=3)
+    torch.cuda.synchronize()
+    after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    assert info["rows_moved"] == 200_000
+    # each of the 9 new tables may round up to one more 8192-row block of
+    # 8 key lanes and 8 value rows
+    assert after - before <= 9 * 8192 * 64
+    assert peak - before >= resident // 2

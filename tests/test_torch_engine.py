@@ -5,9 +5,10 @@ every query, equal ``ScanResult`` fields before and after a write drip
 that triggers an on-device compaction, ``read`` == ``read_many``, the
 result cache's hits, bound and invalidation, and the write options and
 layouts the slice keeps (group commit, commit-log checkpoints, checksummed
-flushes, TR layouts). Also the port's
-boundaries: it imports neither JAX nor ``repro``, it does not fall back
-to the CPU when CUDA is missing, and features not ported yet raise.
+flushes, TR layouts), and ring migration, parallel writes, the drift
+trigger and read deadlines answering like the reference's. Also the port's
+boundaries: it imports neither JAX nor ``repro`` and it does not fall back
+to the CPU when CUDA is missing.
 """
 
 import ast
@@ -277,37 +278,64 @@ def test_tr_layouts_match_reference():
 
 
 def test_features_outside_the_slice_raise(engines):
-    """Ring migration and parallel writes (Queue 1 item 4b) and read
-    deadlines (item 5) raise, naming their ROADMAP item; the availability
-    layer (consistency levels, hedges, node failure, recovery, scrub) is
-    ported and answers."""
-    _, port, wl = engines
+    """Named for the time these features were outside the port; it now
+    holds that ring migration (split, merge, rebalance), parallel writes,
+    the drift trigger and read deadlines answer like the reference's on
+    the same families (ring starts, rows moved, reads); nothing raises
+    ``NotImplementedError``. The availability layer (consistency levels,
+    hedges, node failure, recovery, scrub) answers too."""
+    ref, port, wl = engines
     kc, vc = generate_orders(0.001, seed=1)
-    eng = T.HREngine(n_nodes=3, device="cpu")
-    schema = T.KeySchema(dict(orders_schema().bits))
-    for name, kwargs in (("pv", {"views": True, "device_resident": True}), ("p", {})):
-        eng.create_column_family(
-            name, kc, vc, replication_factor=2, mechanism="TR", schema=schema, partitions=2, **kwargs
+    pair = {}
+    for pkg in (R, T):
+        eng = pkg.HREngine(n_nodes=3, **({"device": "cpu"} if pkg is T else {}))
+        for name, kwargs in (("pv", {"views": True, "device_resident": True}), ("p", {})):
+            eng.create_column_family(
+                name, kc, vc, replication_factor=2, mechanism="TR",
+                schema=pkg.KeySchema(dict(orders_schema().bits)), partitions=2, **kwargs,
+            )
+        pair[pkg] = eng
+    eng = pair[T]
+    for name in ("pv", "p"):
+        assert pair[R].split_partition(name, 0) == eng.split_partition(name, 0)
+        pair[R].merge_partitions(name, 1)
+        eng.merge_partitions(name, 1)
+        assert pair[R].rebalance(name, partitions=3) == eng.rebalance(name, partitions=3)
+        assert pair[R].column_families[name].ring.starts == eng.column_families[name].ring.starts
+        _assert_reads_equal(pair[R].read_many(name, _queries(R, wl)), eng.read_many(name, _queries(T, wl)))
+    assert eng.stats["rebalance_rows_moved"] == pair[R].stats["rebalance_rows_moved"] > 0
+    # parallel flushes and the drift trigger: every written row lands in
+    # one partition, which trips a rebalance at 1.5x the mean
+    wk, wv = generate_orders(0.0004, seed=3)
+    wk["custkey"] = np.minimum(wk["custkey"], 50)
+    drift = {}
+    for pkg in (R, T):
+        e = pkg.HREngine(n_nodes=3, rebalance_imbalance=1.5, **({"device": "cpu"} if pkg is T else {}))
+        e.create_column_family(
+            "d", kc, vc, replication_factor=2, mechanism="TR", schema=pkg.KeySchema(dict(orders_schema().bits)),
+            partitions=2, partition_balance="tokens",
         )
-        for call in (eng.split_partition, eng.merge_partitions, eng.rebalance):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4b"):
-                call(name, 0)
-    for kwargs in ({"parallel_writes": True}, {"rebalance_imbalance": 1.5}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4b"):
-            T.HREngine(n_nodes=3, device="cpu", **kwargs)
-    q = _queries(T, wl)[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        port.read("o", q, deadline_s=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        port.read_many("o", [q], deadline_s=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.rebalance("o")
+        for _ in range(3):
+            e.write("d", wk, wv, parallel=True)
+        drift[pkg] = e
+    assert drift[T].stats["rebalance_rows_moved"] == drift[R].stats["rebalance_rows_moved"] > 0
+    assert drift[T].column_families["d"].ring.starts == drift[R].column_families["d"].ring.starts
+    _assert_reads_equal(drift[R].read_many("d", _queries(R, wl)), drift[T].read_many("d", _queries(T, wl)))
+    # read deadlines: a spent budget is refused, a generous one answers
+    q, rq = _queries(T, wl)[0], _queries(R, wl)[0]
+    with pytest.raises(T.DeadlineExceeded):
+        port.read("o", q, deadline_s=0.0)
+    with pytest.raises(T.DeadlineExceeded):
+        port.read_many("o", [q], deadline_s=0.0)
+    assert port.stats["deadline_exceeded"] >= 2
+    _assert_reads_equal([ref.read("o", rq)], [port.read("o", q, deadline_s=60.0)])
+    assert copy.deepcopy(ref).rebalance("o") == copy.deepcopy(port).rebalance("o")
     want = port.read_many("o", [q])[0][0]
     for kwargs in ({"consistency": "QUORUM"}, {"consistency": "ALL"}, {"hedge": True}):
         assert port.read("o", q, **kwargs)[0].rows_matched == want.rows_matched
         assert port.read_many("o", [q], **kwargs)[0][0].rows_matched == want.rows_matched
     report = eng.scrub_column_family("p")
-    assert report == {"replicas_checked": 4, "corrupt": [], "repaired": 0}
+    assert report == {"replicas_checked": 6, "corrupt": [], "repaired": 0}
     victim = eng.column_families["p"].replicas[0].node_id
     eng.fail_node(victim)
     assert eng.recover_node(victim) > 0.0

@@ -532,8 +532,13 @@ class TestEngineParity:
             e.create_column_family("cf", kc, vc, replication_factor=1, layouts=[("k0", "k1")], schema=schema, views=True)
 
     def test_partitioned_views_are_not_in_this_slice(self):
-        """A partitioned views column family is built; its migration
-        (split, merge, rebalance, which rebuild views) is not ported."""
+        """Named for the time the migration of a views family was outside
+        the port. A partitioned views column family splits and keeps its
+        views:
+        the two rebuilt vnodes get views built over their rows, the kept
+        vnode keeps its view state (the same objects), and every
+        view-served answer equals the fused scan on its table bit for
+        bit."""
         kc, vc, schema = generate_simulation(1000, 2, seed=0)
         e = T.HREngine(n_nodes=2, device="cpu")
         cf = e.create_column_family(
@@ -541,9 +546,18 @@ class TestEngineParity:
             device_resident=True, views=True, partitions=2,
         )
         assert all(e._table(cf, r).has_views for r in cf.replicas)
-        for call in (e.split_partition, e.merge_partitions, e.rebalance):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4b"):
-                call("cf", 0)
+        kept = cf.partitions[1]
+        kept_views = e._table(cf, kept.replicas[0])._device["views"]
+        e.split_partition("cf", 0)
+        assert cf.ring.n_partitions == 3 and cf.partitions[2] is kept
+        assert e._table(cf, kept.replicas[0])._device["views"] is kept_views
+        assert e.stats["view_rebuilds"] == 2
+        qs = random_queries(T, 5, 20, domain=schema.max_value("k0") + 1)
+        for r in cf.replicas:
+            t = e._table(cf, r)
+            assert t.has_views and tviews.verify_views(t) and t._device["keys"].device == CPU
+            elig = [q for q in qs if t._view_eligible(q)]
+            assert_bit_identical(t.execute_many(elig), tops.table_execute_device_many(t, elig), elig)
 
 
 class TestSelectOnlyFastPath:
