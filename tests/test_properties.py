@@ -11,9 +11,9 @@ import pytest
 pytest.importorskip("hypothesis")
 
 import jax.numpy as jnp
-from hypothesis import given, settings, strategies as st
+from hypothesis import example, given, settings, strategies as st
 
-from repro.core import CostModel, Eq, Query, Range, SortedTable
+from repro.core import CostModel, Eq, KeySchema, Query, Range, SortedTable
 from repro.core.ecdf import TableStats
 from repro.core.tpch import generate_simulation
 from repro.kernels import (
@@ -178,15 +178,19 @@ def test_property_rowstream_kernel_matches_ref(seed, q, n, n_vals, data):
 @pytest.mark.kernel
 @settings(max_examples=10, deadline=None)
 @given(seed=st.integers(0, 2**31 - 1), n=st.integers(1, 400))
+@example(seed=0, n=1)
+@example(seed=0, n=2)
 def test_property_device_table_matches_numpy_engine(seed, n):
     """End-to-end property: a device-resident table answers mixed
     sum/count batches (including empty ranges) identically to the numpy
-    engine — counts exact, sums to float32 tolerance."""
+    engine — counts exact, sums to float32 tolerance. The schema is
+    pinned to cover every key and bound drawn (0..14), whatever n."""
     rng = np.random.default_rng(seed)
     kc = {"x": rng.integers(0, 12, n), "y": rng.integers(0, 12, n)}
     vc = {"m": rng.uniform(0, 1, n), "w": rng.uniform(-3, 3, n)}
-    dev = SortedTable.from_columns(kc, vc, ("x", "y")).place_on_device()
-    host = SortedTable.from_columns(kc, vc, ("x", "y"))
+    schema = KeySchema(bits={"x": 4, "y": 4})
+    dev = SortedTable.from_columns(kc, vc, ("x", "y"), schema).place_on_device()
+    host = SortedTable.from_columns(kc, vc, ("x", "y"), schema)
     qs = []
     for _ in range(8):
         f = {}
@@ -203,6 +207,24 @@ def test_property_device_table_matches_numpy_engine(seed, n):
         assert rd.rows_scanned == rh.rows_scanned
         assert rd.rows_matched == rh.rows_matched
         np.testing.assert_allclose(rd.value, rh.value, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.kernel
+def test_eq_outside_the_schema_raises_on_host_and_device():
+    """A value outside the table's key schema is refused by design, by
+    ``execute`` on a host table and by ``execute_many`` on a resident
+    one (the draws the two properties above once made from tiny tables
+    with inferred schemas)."""
+    kc = {"x": np.array([1]), "y": np.array([2])}
+    vc = {"m": np.array([0.5])}
+    host = SortedTable.from_columns(kc, vc, ("x", "y"))
+    assert host.schema.max_value("x") < 9
+    q = Query(filters={"x": Eq(9)}, agg="count")
+    with pytest.raises(ValueError, match="out of range"):
+        host.execute(q)
+    dev = SortedTable.from_columns(kc, vc, ("x", "y")).place_on_device()
+    with pytest.raises(ValueError, match="out of range"):
+        dev.execute_many([q])
 
 
 def _random_queries(rng, schema, cols, k, *, aggs=("count",), value_col=None):
@@ -371,6 +393,7 @@ def test_property_truncated_commitlog_replays_consistent_prefix(
     n=st.integers(1, 400),
     n_runs=st.integers(1, 4),
 )
+@example(seed=0, n=1, n_runs=4)
 def test_property_merge_kernel_matches_lexsort_oracle(seed, n, n_runs):
     """Property: the k-way merge-path kernel's permutation equals the
     lexsort oracle AND the incrementally maintained row_map for any run
@@ -380,7 +403,8 @@ def test_property_merge_kernel_matches_lexsort_oracle(seed, n, n_runs):
     rng = np.random.default_rng(seed)
     kc = {"x": rng.integers(0, 6, n), "y": rng.integers(0, 6, n)}
     vc = {"m": rng.uniform(0, 1, n)}
-    t = SortedTable.from_columns(kc, vc, ("x", "y")).place_on_device()
+    schema = KeySchema(bits={"x": 3, "y": 3})  # covers every value drawn (0..5)
+    t = SortedTable.from_columns(kc, vc, ("x", "y"), schema).place_on_device()
     for _ in range(n_runs - 1):
         m = int(rng.integers(1, 80))
         t = t.merge_insert(
