@@ -13,7 +13,9 @@ replicas), read by scatter-gather and written by routed writes; then the
 availability layer on all three (digest reads with read repair, hinted
 handoff, recovery, hedges, failover, scrub with view healing); then ring
 migration (split, merge, the drift trigger's rebalance) of the
-partitioned families, a parallel write and read deadlines. It holds
+partitioned families, a parallel write and read deadlines; then the
+serving front door, traced, over the resident ``orders`` family, and the
+chaos harnesses with port engines as victim and oracle. It holds
 every kernel of these paths against its plain PyTorch version on the same
 CUDA tensors, at the paths' shapes, and times both.
 
@@ -161,19 +163,42 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 Every answer against the oracle; device allocation before,
                 at the peak and after the split, the drift rebalance and the
                 views steps, each back within the new rows' bytes + 64 MiB
+  15. frontdoor  the port's FrontDoor with a perf-counter Tracer over
+                orders as phase 14 left it (result cache off for the phase):
+                1,024 requests from read_batches (per 256: 128 sums, 64
+                counts, 64 selects), 30 % at QUORUM, three priorities, on
+                seeded Poisson arrivals fixed in seconds (mean gap 0.1 ms,
+                0.01 ms in the middle third, the burst window; a budget of
+                10 ms each); max_batch 64, max_wait 0.4 ms, max_queue 256. Every answer against the oracle, the statuses equal to
+                the counters, every launched batch's tree reaching
+                kernel.scan_launch, queue + service = latency, every tree
+                dumped as JSON lines and loaded back, the slow-query log
+                written to chiprun_out/frontdoor_slow.jsonl and rendered by
+                render_report into chiprun_out/frontdoor_report.txt
+  16. chaos     ChaosHarness(views=True) for seeds 0 and 1 (20 steps, 2,000
+                rows, P = 4, RF 3, 6 nodes; victim and oracle port engines on
+                the card, device-resident with views), each report's
+                acceptance property, every replica resident, the views hit
+                and rebuilt; then on each healed victim a battery of 24
+                view-eligible range sums and counts at QUORUM against the
+                oracle (boundary rescans; the float32 digest mismatches and
+                repairs, and the battery's sums not bit-equal, counted); then
+                OverloadHarness for seed 0 (400 requests, its acceptance
+                property)
 Every kernel wrapper's launch count is set to 0 just before phase 3 and
 read after phase 7, just before phase 5 and after it, just before phase 6
 and after it, just before each of phase 8's two column families and after
-it, just before phase 10 and after it, and just before phases 13 and 14
-and after each; phases 5, 6, 8, 13 and 14 count apart and their counts
-are restored after them, so the main path's counts hold phases 3, 4 and
-7. Each kernel must have launched on its path (the row-slab kernels on
-phase 5's, rows 1-4 on phase 8's, the view kernels on phase 10's, the
-fused scan, select compaction, histogram and both view kernels on phase
-13's, the fused scan, select compaction, histogram and block_sums on
-phase 14's); the row-slab line reports phase 6's launches beside phase
-5's, and the kernels line's launches add phases 13's and 14's to the main
-path's.
+it, just before phase 10 and after it, and just before phases 13, 14, 15
+and 16 and after each; phases 5, 6, 8, 13, 14, 15 and 16 count apart and
+their counts are restored after them, so the main path's counts hold
+phases 3, 4 and 7. Each kernel must have launched on its path (the
+row-slab kernels on phase 5's, rows 1-4 on phase 8's, the view kernels on
+phase 10's, the fused scan, select compaction, histogram and both view
+kernels on phase 13's, the fused scan, select compaction, histogram and
+block_sums on phase 14's, the fused scan and select compaction on phase
+15's, both view kernels, the merge rank and the histogram on phase 16's);
+the row-slab line reports phase 6's launches beside phase 5's, and the
+kernels line's launches add phases 13's to 16's to the main path's.
 The oracle is a brute-force pass over every generated row on the card
 (plain PyTorch masks and float64 sums); checks that launch kernels
 (verify_views, the fused comparisons, the select checks) leave the
@@ -190,7 +215,11 @@ batched-read line, the availability line (walls of the scrub, recovery,
 ``node_up`` and the QUORUM/ALL batches, the counters each step moved,
 the launches, the card), the migration line (each step's host wall,
 rows moved, splits and merges, imbalances, device allocation, launches),
-the card's name and power limit, and
+the frontdoor line (statuses, counters, p50/p99 latency and queue wait,
+group service walls, stage totals, launches, the card), the chaos line
+(per views seed its counters, repairs, battery and float32 sum
+differences; the overload counters; launches; the card), the card's name
+and power limit, and
 ``{"ok": true, "device": ...}``. The kernels line's ``ecdf_hist`` row
 carries the token histogram's launches under ``token_hist``.
 
@@ -1637,7 +1666,7 @@ AVAIL_COUNTERS = (
 )
 
 
-def availability_phase(eng, veng, peng, key_cols, value_cols, writes, n_rows, seed, dev) -> dict:
+def availability_phase(eng, veng, peng, key_cols, value_cols, writes, n_rows, seed, dev) -> tuple[dict, list]:
     """The availability layer on the three SF 5 column families.
 
     ``orders``: a fresh batch of 256 at ONE, QUORUM and ALL (answers
@@ -1654,7 +1683,8 @@ def availability_phase(eng, veng, peng, key_cols, value_cols, writes, n_rows, se
     ``orders_v``: a corrupted view partial and a deleted view, reported and
     healed by scrub, then view-served sums equal to the fused scan bit for
     bit. ``orders_p``: a QUORUM batch, and one node's loss and recovery
-    across its partitions. Every answer against the oracle."""
+    across its partitions. Every answer against the oracle. Returns the
+    phase's report and the writes it made on ``orders``."""
     import repro_torch.core as T
     from repro_torch.core.storage.views import verify_views
 
@@ -1819,7 +1849,7 @@ def availability_phase(eng, veng, peng, key_cols, value_cols, writes, n_rows, se
     del oracle
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return info
+    return info, outage
 
 
 # -- phase 14: ring migration, the drift trigger, parallel flushes, deadlines ---------
@@ -1897,7 +1927,7 @@ class _FlushSpan:
             self.clock.flush_ms[self.replica] = (time.perf_counter() - self.t0) * 1e3
 
 
-def migration_phase(eng, peng, key_cols, value_cols, writes, n_rows, seed, dev) -> dict:
+def migration_phase(eng, peng, key_cols, value_cols, writes, outage, n_rows, seed, dev) -> tuple[dict, list]:
     """Ring migration, the drift trigger, parallel flushes and read
     deadlines on the SF 5 families phase ``availability`` left (every node
     up), each step's answers against the oracle on the card.
@@ -1918,7 +1948,8 @@ def migration_phase(eng, peng, key_cols, value_cols, writes, n_rows, seed, dev) 
     one, and a batch; (f) ``read_many`` with
     ``deadline_s=0.0`` refused once, with ``deadline_s=60.0`` answered as
     without. Device allocation before, at the peak and after (a), (c) and
-    (d)."""
+    (d). ``outage`` is what phase ``availability`` wrote on ``orders``.
+    Returns the phase's report and the writes (e) made on ``orders``."""
     import repro_torch.core as T
 
     for e in (eng, peng):
@@ -2042,7 +2073,7 @@ def migration_phase(eng, peng, key_cols, value_cols, writes, n_rows, seed, dev) 
     # serial: three replica flushes in turn or on the pool, each write's
     # compactions recorded beside its walls
     cf = eng.column_families["orders"]
-    rows_o = with_writes(key_cols, value_cols, writes + extra_writes(seed + 9, 2))
+    rows_o = with_writes(key_cols, value_cols, writes + outage)
     e_writes = extra_writes(seed + 16, 4)
     info["e_writes"] = []
     for i, ((wk, wv), parallel) in enumerate(zip(e_writes, (False, True, True, False))):
@@ -2089,6 +2120,234 @@ def migration_phase(eng, peng, key_cols, value_cols, writes, n_rows, seed, dev) 
               "deadline_s=60 answered differently")
     info["deadline"] = delta(eng, before, ("deadline_exceeded", "read_retries"))
     del oracle
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return info, e_writes
+
+
+# -- phase 15: the serving front door, traced -------------------------------------
+
+
+FRONTDOOR_KERNELS = ("scan_agg_locate", "select_compact")
+FRONTDOOR_COUNTERS = ("digest_mismatches", "read_repairs", "read_retries", "deadline_exceeded")
+# The request stream is fixed in seconds, so that the seed alone pins it:
+# a mean arrival gap of 0.1 ms, about twice the per-request service that a
+# closed-loop batch of 64 on `orders` reports on the H100 (0.051-0.057 ms,
+# PERF.md sections 5-6), a tenth of it in the burst window, a budget of
+# 100 gaps a request and a batching wait of 4 gaps.
+FRONTDOOR_GAP_S = 1.0e-4
+FRONTDOOR_BURST_GAP_S = FRONTDOOR_GAP_S / 10
+FRONTDOOR_DEADLINE_S = 100 * FRONTDOOR_GAP_S
+FRONTDOOR_MAX_WAIT_S = 4 * FRONTDOOR_GAP_S
+
+
+def percentiles_ms(xs) -> dict:
+    xs = np.asarray(xs, dtype=np.float64) * 1e3
+    if not len(xs):
+        return {"n": 0}
+    return {"n": int(len(xs)), "p50": float(np.percentile(xs, 50)), "p99": float(np.percentile(xs, 99)),
+            "max": float(xs.max())}
+
+
+def frontdoor_phase(eng, rows, n_rows, seed, dev) -> dict:
+    """The port's ``FrontDoor`` with a perf-counter ``Tracer`` over the
+    resident ``orders`` family as phase ``migration`` left it.
+
+    1,024 requests from ``read_batches`` (per 256: 128 sums, 64 counts, 64
+    selects), 30 % at QUORUM, three priorities, on seeded Poisson arrivals
+    with a mean gap of ``FRONTDOOR_GAP_S``, ``FRONTDOOR_BURST_GAP_S`` in the
+    middle third (the burst window, as ``OverloadHarness`` has), and a
+    budget of ``FRONTDOOR_DEADLINE_S`` each. The per-request service that
+    one closed-loop batch of 64 reports is read beside them. The result
+    cache is off for the phase, so every launched group scans. Every answer against
+    the oracle; the statuses equal the counters; every batch's tree reaches
+    ``kernel.scan_launch``; the traces dumped as JSON lines, loaded back and
+    rendered (``chiprun_out/frontdoor_report.txt``, the slow-query log in
+    ``chiprun_out/frontdoor_slow.jsonl``)."""
+    import io
+
+    from repro_torch.obs import Tracer, dump_jsonl, load_jsonl, render_report, stage_totals
+    from repro_torch.serving import FrontDoor, Request
+
+    oracle = Oracle(*rows, dev)
+    info: dict = {"card": card_line()}
+    cache_enabled, eng._cache_enabled = eng._cache_enabled, False
+    before = eng.stats
+    try:
+        probe = read_batches(n_rows, seed + 20)[0][:64]
+        out, info["probe_batch_ms"] = timed(eng.read_many, "orders", probe)
+        check_answers(eng, "orders", list(zip(probe, out)), oracle, "front door probe batch")
+        per_request = sum(rep.wall_seconds for _, rep in out) / len(probe)
+        queries = [q for b in read_batches(n_rows, seed + 18) for q in b]
+        rng = np.random.default_rng(seed + 19)
+        n = len(queries)
+        t, requests = 0.0, []
+        for i, q in enumerate(queries):
+            t += float(rng.exponential(FRONTDOOR_BURST_GAP_S if n // 3 <= i < 2 * n // 3 else FRONTDOOR_GAP_S))
+            requests.append(Request(
+                "orders", q, arrival_s=t, deadline_s=FRONTDOOR_DEADLINE_S, priority=int(rng.integers(0, 3)),
+                consistency="QUORUM" if rng.random() < 0.3 else "ONE",
+            ))
+        tracer = Tracer()
+        fd = FrontDoor(eng, max_batch=64, max_wait=FRONTDOOR_MAX_WAIT_S, max_queue=256, tracer=tracer)
+        resps, info["serve_wall_ms"] = timed(fd.serve, requests)
+    finally:
+        eng._cache_enabled = cache_enabled
+    stats = fd.stats
+    info["stats"] = stats
+    info["engine"] = delta(eng, before, FRONTDOOR_COUNTERS)
+    info["arrivals"] = dict(requests=n, mean_gap_ms=FRONTDOOR_GAP_S * 1e3, burst_gap_ms=FRONTDOOR_BURST_GAP_S * 1e3,
+                            deadline_ms=FRONTDOOR_DEADLINE_S * 1e3, max_wait_ms=FRONTDOOR_MAX_WAIT_S * 1e3,
+                            last_arrival_ms=requests[-1].arrival_s * 1e3,
+                            quorum=sum(r.consistency == "QUORUM" for r in requests))
+    info["per_request_service_ms"] = per_request * 1e3
+
+    # statuses against the counters, then every answer against the oracle
+    by = {k: sum(r.status == k for r in resps) for k in ("ok", "rejected", "shed", "deadline")}
+    info["statuses"] = by
+    check(sum(by.values()) == n == stats["submitted"], f"front door: {by} for {n} requests")
+    check(by["ok"] == stats["served_ok"], f"front door: {by['ok']} ok, served_ok {stats['served_ok']}")
+    check(by["rejected"] == stats["rejected_throttle"] + stats["rejected_bulkhead"] + stats["rejected_queue_full"],
+          f"front door: rejected {by['rejected']} vs {stats}")
+    check(by["shed"] == stats["shed_overload"] and by["deadline"] == stats["shed_deadline"],
+          f"front door: shed/deadline {by} vs {stats}")
+    check(sum(r.degraded for r in resps) == stats["consistency_degraded"], "front door: degraded responses uncounted")
+    check(by["ok"] > 0, "the front door answered nothing")
+    check(all(r.error for r in resps if not r.ok), "an untyped refusal")
+    served = [(req.query, (r.result, r.report)) for req, r in zip(requests, resps) if r.ok]
+    uncounted(check_answers, eng, "orders", served, oracle, "front door")
+    del oracle
+
+    # one tree per request; every launched batch's tree reaches the kernel
+    roots = tracer.roots
+    check(sum(r.name == "frontdoor.request" for r in roots) == n, "front door: a request has no tree")
+    # a launched group's engine subtree hangs under its frontdoor.batch root,
+    # or under its sole member's frontdoor.service span
+    groups = [
+        h for root in roots
+        for h in ([root] if root.name == "frontdoor.batch" else root.find_all("frontdoor.service"))
+        if h.find("engine.read_many") is not None
+    ]
+    reached: dict[float, bool] = {}
+    for h in groups:
+        reached[h.t_start] = reached.get(h.t_start, False) or h.find("kernel.scan_launch") is not None
+    check(0 < len(reached) <= stats["batches"], f"front door: {len(reached)} launched batches, {stats['batches']} counted")
+    check(all(reached.values()), f"front door: {sum(not v for v in reached.values())} batches without a scan launch")
+    for req, r in zip(requests, resps):
+        if r.ok:
+            check(r.latency_s <= req.deadline_s, "an ok answer landed past its budget")
+    for root in roots:
+        if root.name != "frontdoor.request" or root.attrs.get("status") != "ok":
+            continue
+        q, sv = root.find("frontdoor.queue"), root.find("frontdoor.service")
+        check(math.isclose(q.wall + sv.wall, root.wall, rel_tol=1e-9, abs_tol=1e-12), "queue + service != latency")
+
+    # export: every tree as JSON lines and back; the slow-query log to a file
+    buf = io.StringIO()
+    check(dump_jsonl(roots, buf) == len(roots), "front door: the dump lost trees")
+    docs = load_jsonl(io.StringIO(buf.getvalue()))
+    check(len(docs) == len(roots), "front door: the dump did not load back")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    slow = out_dir / "frontdoor_slow.jsonl"
+    dump_jsonl(fd.slow_log.entries(), str(slow))
+    slow_docs = load_jsonl(str(slow))
+    check(len(slow_docs) == len(fd.slow_log) > 0, "front door: the slow-query log did not round-trip")
+    report = render_report(slow_docs, top=3, unit="ms")
+    check(report.startswith(f"trace report: {len(slow_docs)} span trees"), "front door: render_report")
+    (out_dir / "frontdoor_report.txt").write_text(report)
+    totals = stage_totals(docs)
+    info["stage_totals_ms"] = {k: {"count": v["count"], "total_ms": v["total"] * 1e3} for k, v in totals.items()}
+    info["latency_ms"] = percentiles_ms([r.latency_s for r in resps if r.ok])
+    info["queue_wait_ms"] = percentiles_ms([r.queue_wait_s for r in resps if r.ok])
+    info["group_service_ms"] = percentiles_ms([h.wall for h in groups])
+    info["launched_batches"] = len(reached)
+    info["trees"] = len(roots)
+    info["slow_log"] = [round(lat * 1e3, 6) for lat, _ in fd.slow_log.entries()]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return info
+
+
+# -- phase 16: the chaos harnesses on the card ----------------------------------------
+
+
+CHAOS_KERNELS = ("block_sums", "boundary_block_sums", "merge_run_positions", "ecdf_hist")
+CHAOS_SEEDS = (0, 1)
+CHAOS_COUNTERS = (
+    "hints_queued", "hint_replays", "hint_fallbacks", "digest_mismatches", "read_repairs", "read_retries",
+    "scrub_checks", "scrub_repairs", "corrupt_runs", "flush_faults", "view_hits", "view_boundary_rows",
+    "view_rebuilds", "compactions",
+)
+
+
+def view_battery(harness) -> dict:
+    """View-eligible range sums and counts on each replica layout's leading
+    key, read at QUORUM on a healed views chaos victim and at ONE on its
+    oracle: counts exact, sums within rtol 1e-5 / atol 1e-3, the sums that
+    are not bit-equal counted. The harness's own probes are counts, which
+    never reach a boundary rescan; these do, and their float32 sums meet
+    the layout-dependent digests (ROADMAP Queue 3), whose mismatches and
+    repairs are counted, not hidden."""
+    import repro_torch.core as T
+
+    cf = harness.victim.column_families["chaos"]
+    qs = []
+    for layout in cf.slot_layouts:
+        col = layout[0]
+        dom = cf.schema.max_value(col) + 1
+        for i in range(4):
+            lo, hi = i * dom // 8, i * dom // 8 + dom // 2
+            qs += [T.Query({col: T.Range(lo, hi)}, "sum", "metric"), T.Query({col: T.Range(lo + 1, hi - 1)}, "count")]
+    before = harness.victim.stats
+    got = harness.victim.read_many("chaos", qs, consistency="QUORUM")
+    want = harness.oracle.read_many("chaos", qs)
+    diffs = 0
+    for q, (g, _), (w, _) in zip(qs, got, want):
+        what = f"views chaos battery ({q.agg}, {q.filters})"
+        check(g.rows_matched == w.rows_matched, f"{what}: rows {g.rows_matched} != {w.rows_matched}")
+        if q.agg == "count":
+            check(g.value == w.value, f"{what}: count {g.value} != {w.value}")
+        else:
+            check(math.isclose(g.value, w.value, rel_tol=RTOL, abs_tol=ATOL), f"{what}: sum {g.value} != {w.value}")
+            diffs += g.value != w.value
+    moved = delta(harness.victim, before, ("view_hits", "view_boundary_rows", "digest_mismatches", "read_repairs"))
+    check(moved["view_hits"] > 0 and moved["view_boundary_rows"] > 0, f"views chaos battery: {moved}")
+    return dict(moved, queries=len(qs), sums_not_bit_equal=int(diffs))
+
+
+def chaos_phase(dev) -> dict:
+    """``ChaosHarness(views=True)`` for two seeds and ``OverloadHarness`` for
+    one on the card, at the reference's test sizes (20 steps, 2,000 rows;
+    400 requests): victim and oracle are port engines on the card, the
+    views families resident with their views. Each report must hold its
+    acceptance property; each healed views victim then answers
+    ``view_battery``."""
+    from repro_torch.ft.chaos import ChaosHarness, OverloadHarness
+
+    info: dict = {"card": card_line(), "views": [], "overload": None}
+    for seed in CHAOS_SEEDS:
+        harness, create_ms = timed(ChaosHarness, seed, n_steps=20, n_rows=2_000, views=True, device=dev)
+        report, run_ms = timed(harness.run)
+        check(report.ok, f"views chaos seed {seed}: {report.failures}")
+        for e in (harness.victim, harness.oracle):
+            cf = e.column_families["chaos"]
+            for r in cf.replicas:
+                check(e._table(cf, r)._device["keys"].device.type == dev.type,
+                      f"views chaos seed {seed}: replica {r.replica_id} is not resident")
+        st = report.stats
+        check(st["view_hits"] > 0 and st["view_rebuilds"] > 0, f"views chaos seed {seed}: views idle {st}")
+        battery, battery_ms = timed(view_battery, harness)
+        info["views"].append(dict(
+            seed=seed, events=report.n_events, create_ms=create_ms, run_ms=run_ms,
+            **{k: st[k] for k in CHAOS_COUNTERS},
+            battery=dict(battery, wall_ms=battery_ms),
+        ))
+        del harness
+    harness, create_ms = timed(OverloadHarness, 0, device=dev)
+    report, run_ms = timed(harness.run)
+    check(report.ok, f"overload seed 0: {report.failures}")
+    info["overload"] = dict(seed=0, requests=report.n_requests, create_ms=create_ms, run_ms=run_ms, stats=report.stats)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return info
@@ -2339,7 +2598,7 @@ def run(args, dev) -> None:
 
     # 13. the availability layer on the three column families, its launch
     # counts from 0, then added to the kernels line's
-    avail, avail_launches = phases.run(
+    (avail, outage), avail_launches = phases.run(
         "availability", own_counts, availability_phase,
         eng, veng, peng, key_cols, value_cols, writes, n_rows, args.seed,
         dev,
@@ -2352,9 +2611,9 @@ def run(args, dev) -> None:
 
     # 14. ring migration, the drift trigger, a parallel write and read
     # deadlines, its launch counts from 0, then added to the kernels line's
-    migration, migration_launches = phases.run(
+    (migration, e_writes), migration_launches = phases.run(
         "migration", own_counts, migration_phase,
-        eng, peng, key_cols, value_cols, writes, n_rows, args.seed, dev,
+        eng, peng, key_cols, value_cols, writes, outage, n_rows, args.seed, dev,
     )
     for name in MIGRATION_KERNELS:
         check(migration_launches[name] > 0, f"kernel {name} was not launched on the migration path")
@@ -2362,7 +2621,30 @@ def run(args, dev) -> None:
     for name, n in migration_launches.items():
         launches[name] += n
 
-    # 15. report
+    # 15. the serving front door, traced, over orders as migration left it,
+    # its launch counts from 0, then added to the kernels line's
+    fd_rows = with_writes(key_cols, value_cols, writes + outage + e_writes)
+    frontdoor, frontdoor_launches = phases.run(
+        "frontdoor", own_counts, frontdoor_phase, eng, fd_rows, n_rows, args.seed, dev,
+    )
+    del fd_rows, outage, e_writes
+    for name in FRONTDOOR_KERNELS:
+        check(frontdoor_launches[name] > 0, f"kernel {name} was not launched on the front door path")
+    frontdoor["launches"] = {name: n for name, n in frontdoor_launches.items() if n}
+    for name, n in frontdoor_launches.items():
+        launches[name] += n
+    frontdoor["phase_ms"] = phases.ms["frontdoor"]
+
+    # 16. the chaos harnesses, their launch counts from 0, then added
+    chaos, chaos_launches = phases.run("chaos", own_counts, chaos_phase, dev)
+    for name in CHAOS_KERNELS:
+        check(chaos_launches[name] > 0, f"kernel {name} was not launched on the views chaos path")
+    chaos["launches"] = {name: n for name, n in chaos_launches.items() if n}
+    for name, n in chaos_launches.items():
+        launches[name] += n
+    chaos["phase_ms"] = phases.ms["chaos"]
+
+    # 17. report
     small_tile = report.pop("small_tile")
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2385,6 +2667,8 @@ def run(args, dev) -> None:
     print(json.dumps({"batched_read": dict(card=card, **trajectory)}))
     print(json.dumps({"availability": avail}))
     print(json.dumps({"migration": migration}))
+    print(json.dumps({"frontdoor": frontdoor}))
+    print(json.dumps({"chaos": chaos}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -8,6 +8,7 @@ from .cost_model import CostModel, LinearCostFunction, estimate_rows, estimate_r
 from .ecdf import ColumnStats, TableStats
 from .engine import (
     ALL,
+    CONSISTENCY_LEVELS,
     ONE,
     QUORUM,
     ColumnFamily,
@@ -51,6 +52,7 @@ __all__ = [
     "ONE",
     "QUORUM",
     "ALL",
+    "CONSISTENCY_LEVELS",
     "ColumnFamily",
     "CorruptRunError",
     "DeadlineExceeded",

@@ -144,6 +144,9 @@ __all__ = [
     "CorruptRunError",
     "DeadlineExceeded",
     "ENGINE_COUNTERS",
+    "FAULT_COUNTERS",
+    "REPAIR_COUNTERS",
+    "VIEW_COUNTERS",
     "resolve_device",
 ]
 
@@ -243,6 +246,32 @@ ENGINE_COUNTERS = (
     # materialized per-slab views: queries the view path answered, live
     # rows of the boundary blocks it rescanned, and full view rebuilds
     # (compaction; CREATE and flush extensions are not rebuilds)
+    "view_hits",
+    "view_boundary_rows",
+    "view_rebuilds",
+)
+
+#: Typed refusal or fault → the registry counter that records it: every
+#: exception type the engine raises, or survives by failover.
+FAULT_COUNTERS: dict[str, str] = {
+    "DeadlineExceeded": "deadline_exceeded",
+    "TransientReadError": "read_faults",
+    "TransientFlushError": "flush_faults",
+    "CorruptRunError": "corrupt_runs",
+}
+
+#: Repair paths: each increments its counter whenever it runs.
+REPAIR_COUNTERS = (
+    "hint_replays",
+    "hint_fallbacks",
+    "read_repairs",
+    "scrub_repairs",
+)
+
+#: Materialized per-slab views: queries the view path answered, boundary
+#: rows it rescanned, full partial rebuilds (CREATE and flush extensions
+#: excluded).
+VIEW_COUNTERS = (
     "view_hits",
     "view_boundary_rows",
     "view_rebuilds",

@@ -1129,3 +1129,47 @@ def test_rebalance_releases_the_retired_tables(cuda_device):
     # 8 key lanes and 8 value rows
     assert after - before <= 9 * 8192 * 64
     assert peak - before >= resident // 2
+
+
+# -- the serving front door on the card ------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_traced_frontdoor_on_the_card_answers_like_a_host_twin(cuda_device):
+    """A traced ``FrontDoor`` over a resident family: every request answered,
+    every launched group's tree reaching ``kernel.scan_launch``, each answer
+    equal to a direct read of a host-table twin (counts exact, sums within
+    rtol 1e-5 / atol 1e-3)."""
+    from repro_torch.core.tpch import q1_q2_workload
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import FrontDoor, Request
+
+    eng, kc, vc = _avail_engine(cuda_device, views=False)
+    twin = T.HREngine(n_nodes=5, device=cuda_device, result_cache=False)
+    cf = eng.column_families["cf"]
+    twin.create_column_family(
+        "cf", kc, vc, replication_factor=3, schema=orders_schema(), layouts=[r.layout for r in cf.replicas],
+    )
+    qs = q1_q2_workload(n_instances=48, seed=3, n_rows=len(kc["custkey"])).queries
+    qs = qs[:24] + [T.Query(q.filters, "count") for q in qs[24:36]] + [T.Query(q.filters, "select") for q in qs[36:]]
+    reqs = [Request("cf", q, arrival_s=i * 1e-4, consistency="QUORUM" if i % 3 == 0 and q.agg != "sum" else "ONE")
+            for i, q in enumerate(qs)]
+    tracer = Tracer()
+    fd = FrontDoor(eng, max_batch=8, max_wait=1e-3, tracer=tracer)
+    before = K.scan_agg_locate.launches
+    resps = fd.serve(reqs)
+    assert all(r.ok for r in resps) and fd.stats["served_ok"] == len(reqs)
+    assert K.scan_agg_locate.launches > before
+    groups = [
+        h for root in tracer.roots
+        for h in ([root] if root.name == "frontdoor.batch" else root.find_all("frontdoor.service"))
+        if h.find("engine.read_many") is not None
+    ]
+    assert groups and all(h.find("kernel.scan_launch") is not None for h in groups)
+    for q, r in zip(qs, resps):
+        want, _ = twin.read("cf", q)
+        assert r.result.rows_matched == want.rows_matched
+        if q.agg == "sum":
+            assert r.result.value == pytest.approx(want.value, rel=1e-5, abs=1e-3)
+        else:
+            assert r.result.value == want.value
