@@ -15,7 +15,8 @@ handoff, recovery, hedges, failover, scrub with view healing); then ring
 migration (split, merge, the drift trigger's rebalance) of the
 partitioned families, a parallel write and read deadlines; then the
 serving front door, traced, over the resident ``orders`` family, and the
-chaos harnesses with port engines as victim and oracle. It holds
+chaos harnesses with port engines as victim and oracle; last, the LM
+serving path, starcoder2-3b at full width. It holds
 every kernel of these paths against its plain PyTorch version on the same
 CUDA tensors, at the paths' shapes, and times both.
 
@@ -185,6 +186,20 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 repairs, and the battery's sums not bit-equal, counted); then
                 OverloadHarness for seed 0 (400 requests, its acceptance
                 property)
+  17. lm_serve  the LM serving path (repro_torch.models, plain PyTorch, no
+                kernel of its own; launch counts from 0 and checked to stay
+                0), after the engines are released: the six "attn"-stack
+                SMOKE configs in float32, prefill and three decode steps on
+                the card against the port's CPU path (logits within 1e-4,
+                caches within 1e-5); serve_batch on starcoder2-3b at full
+                width in bfloat16 (batch 8, prompt 1024, 32 greedy tokens,
+                q_chunk 512, kv_chunk 1024), twice on the same weights
+                (logits finite, tokens in the vocabulary); the full width
+                in float32, prefill over 129 positions against prefill over
+                128 and one decode step, B = 2, under the reference's 5e-3;
+                walls, decode tokens/s, parameter and cache bytes, peak
+                device memory; one prefill and 8 decode steps under
+                torch.profiler (device busy time, events, kernels)
 Every kernel wrapper's launch count is set to 0 just before phase 3 and
 read after phase 7, just before phase 5 and after it, just before phase 6
 and after it, just before each of phase 8's two column families and after
@@ -218,8 +233,9 @@ rows moved, splits and merges, imbalances, device allocation, launches),
 the frontdoor line (statuses, counters, p50/p99 latency and queue wait,
 group service walls, stage totals, launches, the card), the chaos line
 (per views seed its counters, repairs, battery and float32 sum
-differences; the overload counters; launches; the card), the card's name
-and power limit, and
+differences; the overload counters; launches; the card), the lm_serve
+line (card against CPU per SMOKE config, the full-width serving runs and
+decode check, memory, the card), the card's name and power limit, and
 ``{"ok": true, "device": ...}``. The kernels line's ``ecdf_hist`` row
 carries the token histogram's launches under ``token_hist``.
 
@@ -1256,18 +1272,18 @@ def breakdown_phase(targets, n_rows: int, seed: int) -> dict:
     return out
 
 
-def profile_batch(eng, cf_name, batch) -> dict:
-    """One ``read_many`` batch under ``torch.profiler``: its host wall, the
-    union of the device's kernel and copy intervals (busy time), the
-    device time of each kernel by name, and the fused scan's two kernels
-    (``scan_partials``, ``scan_fold``) apart. The profiler's own host cost
-    inflates the wall, so the idle share it gives is an upper bound."""
+def under_profiler(fn, *args) -> tuple[dict, dict]:
+    """``fn(*args)`` under ``torch.profiler``: its host wall, the union of
+    the device's kernel and copy intervals (busy time), the number of
+    device events, and the device time of each kernel by name (the twelve
+    longest in the dict, all in the second value). The profiler's own host
+    cost inflates the wall, so the idle share it gives is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.read_many(cf_name, batch)
+        fn(*args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
@@ -1282,13 +1298,20 @@ def profile_batch(eng, cf_name, batch) -> dict:
         if end > last:
             busy_us += end - max(start, last)
             last = end
-    fused = {k: sum(ms for name, ms in by_name.items() if k in name) for k in ("scan_partials", "scan_fold")}
     return {
-        "queries": len(batch), "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+        "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "device_events": len(spans),
         "device_idle_share": (1.0 - busy_us / 1e3 / wall_ms) if spans else None,
-        "fused_scan_ms": fused,
         "device_ms_by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]),
-    }
+    }, by_name
+
+
+def profile_batch(eng, cf_name, batch) -> dict:
+    """One ``read_many`` batch under ``torch.profiler`` (``under_profiler``), the
+    fused scan's two kernels (``scan_partials``, ``scan_fold``) apart."""
+    prof, by_name = under_profiler(eng.read_many, cf_name, batch)
+    prof.pop("device_events")
+    fused = {k: sum(ms for name, ms in by_name.items() if k in name) for k in ("scan_partials", "scan_fold")}
+    return {"queries": len(batch), **prof, "fused_scan_ms": fused}
 
 
 # -- phase 8: partitioned column families ---------------------------------------------
@@ -2353,6 +2376,118 @@ def chaos_phase(dev) -> dict:
     return info
 
 
+# -- phase 17: the LM serving path ------------------------------------------------------
+
+LM_ARCHS = ("starcoder2-3b", "yi-34b", "chatglm3-6b", "minitron-8b", "musicgen-medium", "paligemma-3b")
+LM_FULL = "starcoder2-3b"
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
+LM_CHECK_B, LM_CHECK_S = 2, 129
+LM_PROFILE_STEPS = 8
+LM_F32_LOGITS, LM_F32_CACHE, LM_DECODE_BOUND = 1e-4, 1e-5, 5e-3
+
+
+def lm_smoke_batch(cfg, rng, n=17) -> dict:
+    """``n`` positions of 2 sequences: tokens, or frame embeddings."""
+    if cfg.input_mode == "tokens":
+        return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, n)))}
+    return {"embeds": torch.as_tensor(rng.normal(0, 1, (2, n, cfg.d_model)).astype(np.float32))}
+
+
+def lm_where_time(model, dev) -> dict:
+    """One prefill of ``LM_BATCH`` prompts of ``LM_PROMPT`` tokens and then
+    ``LM_PROFILE_STEPS`` greedy decode steps, each under ``torch.profiler``
+    (``under_profiler``): walls, device busy time, device events, the
+    kernels that take the device's time."""
+    from repro_torch.serving.steps import make_decode_step, make_prefill_step
+
+    cfg = model.cfg
+    prefill = make_prefill_step(cfg, s_alloc=LM_PROMPT + LM_PROFILE_STEPS, device=dev)
+    decode = make_decode_step(cfg, device=dev)
+    rng = np.random.default_rng(2)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)), device=dev)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill(model, {"tokens": tokens})
+
+    def run_decode():
+        for i in range(LM_PROFILE_STEPS):
+            tok = state["logits"][..., : cfg.vocab_size].argmax(-1)[:, None]
+            state["logits"], _ = decode(model, state["cache"], {"tokens": tok}, LM_PROMPT + i)
+
+    return {"prefill": under_profiler(run_prefill)[0], f"decode_{LM_PROFILE_STEPS}_steps": under_profiler(run_decode)[0]}
+
+
+def lm_serve_phase(dev) -> dict:
+    """The port's LM serving path (plain PyTorch: it has no kernel of its
+    own). First the six "attn"-stack SMOKE configs in float32, the card's
+    prefill and three teacher-forced decode steps against the port's CPU
+    path on the same weights (logits within 1e-4, caches within 1e-5);
+    then ``serve_batch`` on starcoder2-3b at full width in bfloat16 (batch
+    8, prompt 1024, 32 greedy tokens, weights from ``init_lm`` on a CUDA
+    generator seeded 0), twice on the same weights, the first call cold;
+    then the full width in float32: teacher-forced prefill over 129
+    positions against prefill over 128 and one decode step, B = 2, within
+    the reference's 5e-3. Between the two widths, ``lm_where_time``."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.launch.serve import decode_forward_error, device_agreement, serve_batch
+    from repro_torch.models.lm import init_lm
+
+    info: dict = {"card": card_line(), "allocated_before_bytes": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    smoke = {}
+    for arch in LM_ARCHS:
+        cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+        cpu_model = init_lm(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+        diff, ms = timed(device_agreement, cpu_model, copy.deepcopy(cpu_model).to(dev),
+                         lm_smoke_batch(cfg, np.random.default_rng(0)), q_chunk=4, kv_chunk=8)
+        check(diff["prefill_logits"] <= LM_F32_LOGITS and diff["decode_logits"] <= LM_F32_LOGITS
+              and diff["cache"] <= LM_F32_CACHE, f"lm_serve {arch}: the card differs from the CPU: {diff}")
+        smoke[arch] = dict(diff, wall_ms=ms)
+    info["smoke_vs_cpu"] = smoke
+
+    cfg = get_arch(LM_FULL)
+    model, init_ms = timed(init_lm, cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    runs, generated = [], []
+    for _ in range(2):
+        out = serve_batch(cfg, batch_size=LM_BATCH, prompt_len=LM_PROMPT, gen_tokens=LM_GEN, seed=0, device=dev,
+                          model=model)
+        tokens = out["tokens"]
+        generated.append(tokens)
+        check(bool(torch.isfinite(out["logits"]).all()), f"lm_serve {LM_FULL}: logits not finite")
+        check(tokens.shape == (LM_BATCH, LM_GEN) and tokens.min() >= 0 and tokens.max() < cfg.vocab_size,
+              f"lm_serve {LM_FULL}: tokens {tokens.shape}, range {tokens.min()}..{tokens.max()}")
+        runs.append(dict(prefill_ms=out["prefill_s"] * 1e3, decode_ms=out["decode_s"] * 1e3,
+                         decode_tok_s=out["decode_tok_s"], tokens_head=tokens[0, :8].tolist()))
+    info["serve"] = dict(
+        arch=LM_FULL, dtype=cfg.dtype, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN, q_chunk=512, kv_chunk=1024,
+        init_ms=init_ms, runs=runs, repeat_tokens_equal=bool(np.array_equal(*generated)),
+        param_count=cfg.param_count(), param_bytes=out["param_bytes"], cache_bytes=out["cache_bytes"],
+        peak_bytes=torch.cuda.max_memory_allocated(),
+    )
+    info["where_time"] = lm_where_time(model, dev)
+    del model, out
+    torch.cuda.empty_cache()
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    model, init_ms = timed(init_lm, f32, generator=torch.Generator(dev).manual_seed(1), device=dev)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, f32.vocab_size, (LM_CHECK_B, LM_CHECK_S)), device=dev)}
+    err, ms = timed(decode_forward_error, model, batch, device=dev)
+    check(err < LM_DECODE_BOUND, f"lm_serve {LM_FULL} float32: decode differs from forward by {err}")
+    info["decode_check"] = dict(
+        dtype="float32", batch=LM_CHECK_B, positions=LM_CHECK_S, max_rel_err=err, bound=LM_DECODE_BOUND,
+        init_ms=init_ms, wall_ms=ms, peak_bytes=torch.cuda.max_memory_allocated(),
+    )
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=5.0, help="TPC-H scale factor (1.5 M rows each)")
@@ -2644,7 +2779,16 @@ def run(args, dev) -> None:
         launches[name] += n
     chaos["phase_ms"] = phases.ms["chaos"]
 
-    # 17. report
+    # 17. the LM serving path, once the engines' device state is released; it
+    # launches none of the engine's kernels
+    del eng, veng, peng
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_serve, lm_launches = phases.run("lm_serve", own_counts, lm_serve_phase, dev)
+    check(not any(lm_launches.values()), f"the LM serving path launched engine kernels: {lm_launches}")
+    lm_serve["phase_ms"] = phases.ms["lm_serve"]
+
+    # 18. report
     small_tile = report.pop("small_tile")
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2669,6 +2813,7 @@ def run(args, dev) -> None:
     print(json.dumps({"migration": migration}))
     print(json.dumps({"frontdoor": frontdoor}))
     print(json.dumps({"chaos": chaos}))
+    print(json.dumps({"lm_serve": lm_serve}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

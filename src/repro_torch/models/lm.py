@@ -1,0 +1,252 @@
+"""Decoder LM of the port, serving half: the counterpart of
+``repro.models.lm``'s ``init_lm``, ``init_cache``, ``prefill`` and
+``decode_step`` for the architectures whose layers form one stack of
+kind "attn" (GQA attention + MLP): starcoder2-3b, yi-34b, chatglm3-6b,
+minitron-8b, musicgen-medium and paligemma-3b.
+
+Layers are organized into stacks as in the reference; where the
+reference stacks each stack's layers on a leading axis and scans them,
+``LM`` holds one ``nn.ModuleList`` of blocks per stack and loops. The
+cache is the reference's dict of stacked tensors, ``"<stack>/k"`` and
+``"<stack>/v"`` of ``[L, B, S_alloc, Hkv, Dh]``; ``decode_step`` writes
+it in place. MoE, MLA with MTP, and the SSD and hybrid blocks come in
+later slices (ROADMAP items 7b-7d), training with item 7e.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.parallel.padding import PaddedDims, padded_dims
+from . import blocks as blk
+from .attention import MLA_SLICE
+from .config import ArchConfig
+from .layers import NEG, dense, dense_init, rmsnorm_init
+
+__all__ = [
+    "LM",
+    "StackSpec",
+    "stacks_for",
+    "unported",
+    "require_in_slice",
+    "init_lm",
+    "init_cache",
+    "prefill",
+    "decode_step",
+    "torch_dtype",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class StackSpec:
+    name: str
+    kind: str  # "attn" | "moe" | "ssm" | "hybrid"
+    n_layers: int
+    d_ff: int  # dense-MLP width inside the block (0 = none)
+
+
+def stacks_for(cfg: ArchConfig) -> list[StackSpec]:
+    if cfg.family == "ssm":
+        return [StackSpec("main", "ssm", cfg.n_layers, 0)]
+    if cfg.family == "hybrid":
+        return [StackSpec("main", "hybrid", cfg.n_layers, cfg.d_ff)]
+    if cfg.is_moe:
+        stacks = []
+        if cfg.first_k_dense:
+            stacks.append(StackSpec("dense", "attn", cfg.first_k_dense, cfg.dense_d_ff))
+        stacks.append(StackSpec("moe", "moe", cfg.n_layers - cfg.first_k_dense, 0))
+        return stacks
+    return [StackSpec("main", "attn", cfg.n_layers, cfg.d_ff)]
+
+
+def unported(cfg: ArchConfig) -> str | None:
+    """Why ``cfg`` cannot be served by this slice of the port, or None."""
+    if cfg.attention == "mla" or cfg.mtp:
+        return MLA_SLICE
+    for spec in stacks_for(cfg):
+        if spec.kind in blk.KIND_SLICES:
+            return blk.KIND_SLICES[spec.kind]
+    return None
+
+
+def require_in_slice(cfg: ArchConfig) -> None:
+    reason = unported(cfg)
+    if reason is not None:
+        raise NotImplementedError(f"{cfg.name}: {reason}")
+
+
+def _windows_for(cfg: ArchConfig, spec: StackSpec, layer_offset: int) -> list[int] | int:
+    """Per-layer sliding windows; 0 → global (no window mask)."""
+    if cfg.sliding_window <= 0:
+        return 0
+    glob = set(cfg.global_layers)
+    return [
+        blk.GLOBAL_WINDOW if (layer_offset + i) in glob else cfg.sliding_window
+        for i in range(spec.n_layers)
+    ]
+
+
+def torch_dtype(name: str | torch.dtype) -> torch.dtype:
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+# ---------------------------------------------------------------- model -------
+
+
+class LM(nn.Module):
+    """The weights of one architecture: ``embed`` ``[V_pad, D]`` (token
+    inputs), ``stacks[name][layer]`` blocks, ``final_norm`` and, untied,
+    ``head`` ``[D, V_pad]`` or ``[CB, D, V_pad]``. The activations take the
+    blocks' weight type; norm scales stay float32."""
+
+    def __init__(self, cfg: ArchConfig, embed: torch.Tensor | None, stacks: dict[str, list[blk.Block]],
+                 final_norm: blk.RMSNorm, head: torch.Tensor | None):
+        super().__init__()
+        require_in_slice(cfg)
+        self.cfg, self.pd = cfg, padded_dims(cfg, 1)
+        self.embed = None if embed is None else nn.Parameter(embed)
+        self.stacks = nn.ModuleDict({name: nn.ModuleList(layers) for name, layers in stacks.items()})
+        self.final_norm = final_norm
+        self.head = None if head is None else nn.Parameter(head)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._first_weight().dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._first_weight().device
+
+    def _first_weight(self) -> torch.Tensor:
+        return next(iter(self.stacks.values()))[0].attn.wq
+
+
+def init_lm(cfg: ArchConfig, *, generator: torch.Generator, device, dtype=None) -> LM:
+    """Random weights from ``generator`` with the reference's distributions:
+    dense weights truncated normal on [-2, 2] over sqrt(d_in), the
+    embedding normal times 0.02, norm scales ones in float32. ``dtype``
+    defaults to ``cfg.dtype``; ``device`` must be the generator's."""
+    require_in_slice(cfg)
+    dtype = torch_dtype(dtype or cfg.dtype)
+    pd = padded_dims(cfg, 1)
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    embed = None
+    if cfg.input_mode == "tokens":
+        embed = torch.empty((pd.vocab_size, cfg.d_model), device=device, dtype=torch.float32)
+        embed = (embed.normal_(generator=generator) * 0.02).to(dtype)
+    stacks = {
+        spec.name: [blk.init_block(cfg, pd, spec.kind, spec.d_ff, **kw) for _ in range(spec.n_layers)]
+        for spec in stacks_for(cfg)
+    }
+    final_norm = blk.RMSNorm(rmsnorm_init(cfg.d_model, device=device))
+    head = None
+    if not cfg.tie_embeddings:
+        if cfg.n_codebooks > 1:
+            head = torch.stack([dense_init(cfg.d_model, pd.vocab_size, **kw) for _ in range(cfg.n_codebooks)])
+        else:
+            head = dense_init(cfg.d_model, pd.vocab_size, **kw)
+    return LM(cfg, embed, stacks, final_norm, head)
+
+
+# ---------------------------------------------------------------- embed/head ---
+
+
+def _embed_in(model: LM, batch: dict) -> torch.Tensor:
+    cfg = model.cfg
+    if cfg.input_mode == "tokens":
+        x = model.embed[batch["tokens"]]
+    else:
+        x = batch["embeds"].to(model.dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(float(cfg.d_model), dtype=torch.float32).sqrt().to(x.dtype)
+    return x
+
+
+def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
+    """x [..., D] → logits [..., V_pad] (or [..., CB, V_pad]); the padded
+    vocabulary is masked to -1e30 so it never wins."""
+    cfg, pd = model.cfg, model.pd
+    if cfg.tie_embeddings:
+        logits = dense(x, model.embed.T)
+    elif cfg.n_codebooks > 1:
+        logits = torch.einsum("...d,cdv->...cv", x, model.head).to(x.dtype)
+    else:
+        logits = dense(x, model.head)
+    if pd.vocab_size != cfg.vocab_size:
+        pad = torch.arange(pd.vocab_size, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, NEG)
+    return logits
+
+
+# ---------------------------------------------------------------- cache --------
+
+
+def _cache_entry_shapes(cfg: ArchConfig, pd: PaddedDims, spec: StackSpec, B: int, S: int):
+    """(name, shape) per cache tensor of one stack."""
+    kv = (spec.n_layers, B, S, pd.n_kv_heads, cfg.d_head)
+    return [("k", kv), ("v", kv)]
+
+
+def init_cache(cfg: ArchConfig, B: int, S_alloc: int, *, device, dtype=None) -> dict[str, torch.Tensor]:
+    """A zeroed cache for ``B`` sequences of ``S_alloc`` slots, in ``dtype``
+    (default ``cfg.dtype``)."""
+    require_in_slice(cfg)
+    pd = padded_dims(cfg, 1)
+    dtype = torch_dtype(dtype or cfg.dtype)
+    return {
+        f"{spec.name}/{name}": torch.zeros(shape, device=device, dtype=dtype)
+        for spec in stacks_for(cfg)
+        for name, shape in _cache_entry_shapes(cfg, pd, spec, B, S_alloc)
+    }
+
+
+# ---------------------------------------------------------------- prefill ------
+
+
+def prefill(model: LM, batch: dict, *, s_alloc: int | None = None, q_chunk: int = 512,
+            kv_chunk: int = 1024) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Full-prompt forward → (logits of the last position, the cache primed
+    with the prompt's K and V, zeros up to ``s_alloc``)."""
+    cfg = model.cfg
+    x = _embed_in(model, batch)
+    B, S = x.shape[:2]
+    s_alloc = s_alloc or S
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    cache = init_cache(cfg, B, s_alloc, device=x.device, dtype=x.dtype)
+    off = 0
+    for spec in stacks_for(cfg):
+        windows = _windows_for(cfg, spec, off)
+        ck, cv = cache[f"{spec.name}/k"], cache[f"{spec.name}/v"]
+        for i, block in enumerate(model.stacks[spec.name]):
+            window = windows if isinstance(windows, int) else windows[i]
+            x, (k, v) = block(x, positions, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
+            ck[i, :, :S] = k
+            cv[i, :, :S] = v
+        off += spec.n_layers
+    h = model.final_norm(x[:, -1:], cfg.norm_eps)
+    return _logits(model, h)[:, 0], cache
+
+
+# ---------------------------------------------------------------- decode -------
+
+
+def decode_step(model: LM, cache: dict[str, torch.Tensor], batch_t: dict,
+                pos: int) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One token (``{"tokens": [B,1]}`` or ``{"embeds": [B,1,D]}``) at
+    position ``pos`` → (logits [B, V(·CB)], the cache, written in place at
+    slot ``pos``)."""
+    cfg = model.cfg
+    x = _embed_in(model, batch_t)
+    off = 0
+    for spec in stacks_for(cfg):
+        windows = _windows_for(cfg, spec, off)
+        ck, cv = cache[f"{spec.name}/k"], cache[f"{spec.name}/v"]
+        for i, block in enumerate(model.stacks[spec.name]):
+            window = windows if isinstance(windows, int) else windows[i]
+            x = block.decode(x, ck[i], cv[i], pos, window=window)
+        off += spec.n_layers
+    h = model.final_norm(x, cfg.norm_eps)
+    return _logits(model, h)[:, 0], cache

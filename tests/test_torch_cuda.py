@@ -11,8 +11,15 @@ versions' on the same CUDA tensors; float32 sums agree within rtol 1e-5 /
 atol 1e-3 (the kernels reduce a block in another order than the plain
 versions). On the card, view-served sums equal the fused scan's bit for
 bit, on schemas whose staging tile differs, and ``block_sums`` equals the
-contract's in-block order written out in PyTorch bit for bit.
+contract's in-block order written out in PyTorch bit for bit. The LM
+serving path (plain PyTorch, no kernel of its own) must give the CPU's
+float32 logits within 1e-4 and caches within 1e-5 on the card, and its
+decode must agree with a teacher-forced prefill within the reference's
+5e-3.
 """
+
+import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1173,3 +1180,27 @@ def test_traced_frontdoor_on_the_card_answers_like_a_host_twin(cuda_device):
             assert r.result.value == pytest.approx(want.value, rel=1e-5, abs=1e-3)
         else:
             assert r.result.value == want.value
+
+
+LM_ARCHS = ("starcoder2-3b", "yi-34b", "chatglm3-6b", "minitron-8b", "musicgen-medium", "paligemma-3b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_serving_on_the_card_matches_the_cpu(cuda_device, arch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import decode_forward_error, device_agreement
+    from repro_torch.models.lm import init_lm
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    cpu_model = init_lm(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(cuda_device)
+    rng = np.random.default_rng(0)
+    if cfg.input_mode == "tokens":
+        batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 17)))}
+    else:
+        batch = {"embeds": torch.as_tensor(rng.normal(0, 1, (2, 17, cfg.d_model)).astype(np.float32))}
+    diff = device_agreement(cpu_model, card_model, batch, q_chunk=4, kv_chunk=8)
+    assert diff["prefill_logits"] <= 1e-4 and diff["decode_logits"] <= 1e-4 and diff["cache"] <= 1e-5, diff
+    on_card = {k: v.to(cuda_device) for k, v in batch.items()}
+    assert decode_forward_error(card_model, on_card, device=cuda_device, q_chunk=4, kv_chunk=4) < 5e-3
