@@ -188,10 +188,12 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 property)
   17. lm_serve  the LM serving path (repro_torch.models, plain PyTorch, no
                 kernel of its own; launch counts from 0 and checked to stay
-                0), after the engines are released: the six "attn"-stack
-                SMOKE configs in float32, prefill and three decode steps on
-                the card against the port's CPU path (logits within 1e-4,
-                caches within 1e-5); serve_batch on starcoder2-3b at full
+                0), after the engines are released: the ten SMOKE configs
+                in float32, prefill and three decode steps on the card
+                against the port's CPU path (logits within 1e-4, caches
+                within 1e-5, the SSD state within 1e-5 of its largest
+                magnitude, MoE expert choices equal); serve_batch on
+                starcoder2-3b at full
                 width in bfloat16 (batch 8, prompt 1024, 32 greedy tokens,
                 q_chunk 512, kv_chunk 1024), twice on the same weights
                 (logits finite, tokens in the vocabulary); the full width
@@ -199,7 +201,17 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 128 and one decode step, B = 2, under the reference's 5e-3;
                 walls, decode tokens/s, parameter and cache bytes, peak
                 device memory; one prefill and 8 decode steps under
-                torch.profiler (device busy time, events, kernels)
+                torch.profiler (device busy time, events, kernels); then,
+                at published widths in bfloat16, each model built and freed
+                in turn, serve_batch on qwen2-moe-a2.7b (B 8 x 1024, 32
+                tokens; each MoE layer's capacity and dropped share at
+                prefill and decode), mamba2-780m (B 8 x 1024, 32 tokens;
+                the float32 decode check at full width, B 2, 129
+                positions), hymba-1.5b (B 8 x 2048, 32 tokens; a windowed
+                layer against its global twin) and deepseek-v3-671b cut to
+                its 3 dense and 1 MoE layer (B 4 x 1024, 16 tokens); each
+                with 2 decode steps under torch.profiler (and the prefill,
+                for MoE); the MoE routing from a second, untimed serve_batch
 Every kernel wrapper's launch count is set to 0 just before phase 3 and
 read after phase 7, just before phase 5 and after it, just before phase 6
 and after it, just before each of phase 8's two column families and after
@@ -235,7 +247,8 @@ group service walls, stage totals, launches, the card), the chaos line
 (per views seed its counters, repairs, battery and float32 sum
 differences; the overload counters; launches; the card), the lm_serve
 line (card against CPU per SMOKE config, the full-width serving runs and
-decode check, memory, the card), the card's name and power limit, and
+decode checks, memory, per family its run under ``families`` and the
+depth cut under ``reduced``, the card), the card's name and power limit, and
 ``{"ok": true, "device": ...}``. The kernels line's ``ecdf_hist`` row
 carries the token histogram's launches under ``token_hist``.
 
@@ -592,7 +605,7 @@ def kernel_phase(key_cols, value_cols, writes, dev):
     rows = {
         "merge_run_positions": dict(
             max_abs_err=merge["max_abs_err"], ms=merge["ms"], device_ms=merge["device_ms"],
-            plain_ms=merge["plain_ms"], bound_ms=b, bound_by=by, library_ms=None,
+            plain_ms=merge["plain_ms"], bound_ms=b, bound_by=by, library_ms=merge["library_ms"],
             per=f"one compaction of {len(starts)} runs, {n_rows} rows",
         ),
     }
@@ -2378,12 +2391,26 @@ def chaos_phase(dev) -> dict:
 
 # -- phase 17: the LM serving path ------------------------------------------------------
 
-LM_ARCHS = ("starcoder2-3b", "yi-34b", "chatglm3-6b", "minitron-8b", "musicgen-medium", "paligemma-3b")
+LM_ARCHS = ("starcoder2-3b", "yi-34b", "chatglm3-6b", "minitron-8b", "musicgen-medium", "paligemma-3b",
+            "qwen2-moe-a2.7b", "deepseek-v3-671b", "mamba2-780m", "hymba-1.5b")
 LM_FULL = "starcoder2-3b"
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
 LM_CHECK_B, LM_CHECK_S = 2, 129
 LM_PROFILE_STEPS = 8
+#: the other families' profiled decode steps (each is thousands of device
+#: events: the profiler's collection takes seconds)
+LM_FAMILY_PROFILE_STEPS = 2
 LM_F32_LOGITS, LM_F32_CACHE, LM_DECODE_BOUND = 1e-4, 1e-5, 5e-3
+#: the other families at their published widths, bfloat16: (batch, prompt,
+#: greedy tokens, layers kept; None = all)
+LM_FAMILIES = {
+    "qwen2-moe-a2.7b": (8, 1024, 32, None),
+    "mamba2-780m": (8, 1024, 32, None),
+    "hymba-1.5b": (8, 2048, 32, None),
+    # 671 B parameters are ~1.34 TB in bfloat16, 17x the card: the 3 dense
+    # layers and 1 MoE layer, 15.11 B parameters by param_count()
+    "deepseek-v3-671b": (4, 1024, 16, 4),
+}
 
 
 def lm_smoke_batch(cfg, rng, n=17) -> dict:
@@ -2393,42 +2420,183 @@ def lm_smoke_batch(cfg, rng, n=17) -> dict:
     return {"embeds": torch.as_tensor(rng.normal(0, 1, (2, n, cfg.d_model)).astype(np.float32))}
 
 
-def lm_where_time(model, dev) -> dict:
-    """One prefill of ``LM_BATCH`` prompts of ``LM_PROMPT`` tokens and then
-    ``LM_PROFILE_STEPS`` greedy decode steps, each under ``torch.profiler``
-    (``under_profiler``): walls, device busy time, device events, the
-    kernels that take the device's time."""
+def lm_where_time(model, dev, batch: int = LM_BATCH, prompt: int = LM_PROMPT, steps: int = LM_PROFILE_STEPS,
+                  profile_prefill: bool = True) -> dict:
+    """One prefill of ``batch`` prompts of ``prompt`` tokens and then
+    ``steps`` greedy decode steps, each under ``torch.profiler``
+    (``under_profiler``; the prefill unprofiled when ``profile_prefill``
+    is false): walls, device busy time, device events, the kernels that
+    take the device's time."""
     from repro_torch.serving.steps import make_decode_step, make_prefill_step
 
     cfg = model.cfg
-    prefill = make_prefill_step(cfg, s_alloc=LM_PROMPT + LM_PROFILE_STEPS, device=dev)
+    prefill = make_prefill_step(cfg, s_alloc=prompt + steps, device=dev)
     decode = make_decode_step(cfg, device=dev)
     rng = np.random.default_rng(2)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)), device=dev)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt)), device=dev)
     state = {}
 
     def run_prefill():
         state["logits"], state["cache"] = prefill(model, {"tokens": tokens})
 
     def run_decode():
-        for i in range(LM_PROFILE_STEPS):
+        for i in range(steps):
             tok = state["logits"][..., : cfg.vocab_size].argmax(-1)[:, None]
-            state["logits"], _ = decode(model, state["cache"], {"tokens": tok}, LM_PROMPT + i)
+            state["logits"], _ = decode(model, state["cache"], {"tokens": tok}, prompt + i)
 
-    return {"prefill": under_profiler(run_prefill)[0], f"decode_{LM_PROFILE_STEPS}_steps": under_profiler(run_decode)[0]}
+    out = {}
+    if profile_prefill:
+        out["prefill"] = under_profiler(run_prefill)[0]
+    else:
+        run_prefill()
+    out[f"decode_{steps}_steps"] = under_profiler(run_decode)[0]
+    return out
+
+
+def lm_route_shares(log, tokens_prefill: int, tokens_decode: int) -> dict:
+    """Per MoE layer, from a ``route_log`` of one ``serve_batch``: the
+    capacity and the share of (token, choice) assignments dropped at the
+    prefill and over the decode steps."""
+    layers: dict = {}
+    for call in log.summary():
+        phase = "prefill" if call["tokens"] == tokens_prefill else "decode"
+        check(call["tokens"] in (tokens_prefill, tokens_decode), f"a routing call of {call['tokens']} tokens")
+        row = layers.setdefault(call["layer"], {})
+        acc = row.setdefault(phase, dict(capacity=call["capacity"], calls=0, assignments=0, dropped=0))
+        check(acc["capacity"] == call["capacity"], f"{call['layer']}: capacity changed within the {phase}")
+        acc["calls"] += 1
+        acc["assignments"] += call["assignments"]
+        acc["dropped"] += call["dropped"]
+    for row in layers.values():
+        for acc in row.values():
+            acc["dropped_share"] = acc["dropped"] / acc["assignments"]
+    return layers
+
+
+def lm_window_check(model, seq: int, dev) -> dict:
+    """A windowed hybrid layer at full width on a random input of ``seq``
+    positions, with its window and with the global sentinel: the outputs
+    before position ``window`` agree, after it they differ (the window
+    masks)."""
+    from repro_torch.models.blocks import GLOBAL_WINDOW
+    from repro_torch.models.lm import _windows_for, stacks_for
+    from repro_torch.serving.steps import exact_matmul
+
+    cfg = model.cfg
+    (spec,) = stacks_for(cfg)
+    windows = _windows_for(cfg, spec, 0)
+    layer = next(i for i, w in enumerate(windows) if w != GLOBAL_WINDOW)
+    check([i for i, w in enumerate(windows) if w == GLOBAL_WINDOW] == list(cfg.global_layers),
+          f"{cfg.name}: global layers {windows}")
+    g = torch.Generator(dev).manual_seed(5)
+    x = torch.randn((1, seq, cfg.d_model), generator=g, device=dev).to(model.dtype)
+    pos = torch.arange(seq, dtype=torch.int32, device=dev)[None]
+    block, w = model.stacks[spec.name][layer], windows[layer]
+    with torch.inference_mode(), exact_matmul():
+        a, _ = block(x, pos, window=w)
+        b, _ = block(x, pos, window=GLOBAL_WINDOW)
+    inside, outside = max_abs_diff(a[:, :w], b[:, :w]), max_abs_diff(a[:, w:], b[:, w:])
+    check(outside > 0 and outside > 10 * inside, f"{cfg.name}: the window of {w} does not mask ({inside}, {outside})")
+    return dict(layer=layer, window=w, global_layers=list(cfg.global_layers), positions=seq,
+                max_abs_diff_inside=inside, max_abs_diff_outside=outside)
+
+
+def lm_family_run(arch: str, dev) -> dict:
+    """``serve_batch`` at the published widths in bfloat16 (``LM_FAMILIES``:
+    batch, prompt, tokens, depth), the model from ``init_lm`` on a CUDA
+    generator seeded 0 and freed after: logits finite, tokens in the
+    vocabulary; ``lm_where_time`` at the same batch and prompt
+    (``LM_FAMILY_PROFILE_STEPS`` decode steps, the prefill too for MoE,
+    where the dispatch's scan shows); for MoE,
+    the capacities and dropped shares per layer from a second, untimed
+    ``serve_batch`` under ``route_log`` (the timed one carries no
+    instrumentation); the hybrid's window; the SSD's float32 decode check
+    at full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import decode_forward_error, serve_batch
+    from repro_torch.models.lm import init_lm
+    from repro_torch.models.moe import route_log
+
+    B, P, G, layers = LM_FAMILIES[arch]
+    cfg = get_arch(arch)
+    info: dict = dict(arch=arch, dtype=cfg.dtype, batch=B, prompt=P, gen=G)
+    if layers is not None:
+        info["reduced"] = dict(
+            n_layers=[cfg.n_layers, layers],
+            kept=f"the {cfg.first_k_dense} dense layers and {layers - cfg.first_k_dense} of "
+                 f"{cfg.n_layers - cfg.first_k_dense} MoE layers, widths as published",
+            why=f"{cfg.param_count() / 1e9:.0f} B parameters are {2 * cfg.param_count() / 1e12:.2f} TB in bfloat16",
+        )
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, info["init_ms"] = timed(init_lm, cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    out = serve_batch(cfg, batch_size=B, prompt_len=P, gen_tokens=G, seed=0, device=dev, model=model)
+    tokens = out["tokens"]
+    check(bool(torch.isfinite(out["logits"][..., : cfg.vocab_size]).all()), f"lm_serve {arch}: logits not finite")
+    check(tokens.shape == (B, G) and tokens.min() >= 0 and tokens.max() < cfg.vocab_size,
+          f"lm_serve {arch}: tokens {tokens.shape}, range {tokens.min()}..{tokens.max()}")
+    info.update(
+        param_count=cfg.param_count(), param_bytes=out["param_bytes"], cache_bytes=out["cache_bytes"],
+        prefill_ms=out["prefill_s"] * 1e3, decode_ms=out["decode_s"] * 1e3, decode_tok_s=out["decode_tok_s"],
+        peak_bytes=torch.cuda.max_memory_allocated(), tokens_head=tokens[0, :8].tolist(),
+    )
+    del out
+    t0 = time.perf_counter()
+    info["where_time"] = lm_where_time(model, dev, B, P, LM_FAMILY_PROFILE_STEPS, profile_prefill=cfg.is_moe)
+    info["where_time_host_s"] = time.perf_counter() - t0
+    if cfg.is_moe:
+        with route_log(model) as log:
+            logged = serve_batch(cfg, batch_size=B, prompt_len=P, gen_tokens=G, seed=0, device=dev, model=model)
+        info["logged_run_tokens_equal"] = bool(np.array_equal(logged["tokens"], tokens))
+        del logged
+        info["moe"] = lm_route_shares(log, B * P, B)
+        for name, row in info["moe"].items():
+            for phase, T in (("prefill", B * P), ("decode", B)):
+                want = max(1, math.ceil(T * cfg.moe_top_k * cfg.capacity_factor / cfg.n_experts))
+                check(row[phase]["capacity"] == want, f"{arch} {name}: {phase} capacity {row[phase]['capacity']}")
+        print(f"lm_serve {arch}: dropped share per MoE layer, prefill / decode: "
+              + ", ".join(f"{r['prefill']['dropped_share']:.4f}/{r['decode']['dropped_share']:.4f}"
+                          for r in info["moe"].values()), flush=True)
+    if cfg.family == "hybrid":
+        info["window_check"] = lm_window_check(model, P, dev)
+    del model
+    torch.cuda.empty_cache()
+    if cfg.family == "ssm":
+        torch.cuda.reset_peak_memory_stats()
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        model, init_ms = timed(init_lm, f32, generator=torch.Generator(dev).manual_seed(1), device=dev)
+        rng = np.random.default_rng(1)
+        batch = {"tokens": torch.as_tensor(rng.integers(0, f32.vocab_size, (LM_CHECK_B, LM_CHECK_S)), device=dev)}
+        err, ms = timed(decode_forward_error, model, batch, device=dev)
+        check(err < LM_DECODE_BOUND, f"lm_serve {arch} float32: decode differs from forward by {err}")
+        info["decode_check"] = dict(
+            dtype="float32", batch=LM_CHECK_B, positions=LM_CHECK_S, max_rel_err=err, bound=LM_DECODE_BOUND,
+            init_ms=init_ms, wall_ms=ms, peak_bytes=torch.cuda.max_memory_allocated(),
+        )
+        del model
+        torch.cuda.empty_cache()
+    print(f"lm_serve {arch}: prefill {info['prefill_ms']:.1f} ms, decode {info['decode_tok_s']:.1f} tok/s, "
+          f"peak {info['peak_bytes'] / 1e9:.2f} GB", flush=True)
+    return info
 
 
 def lm_serve_phase(dev) -> dict:
     """The port's LM serving path (plain PyTorch: it has no kernel of its
-    own). First the six "attn"-stack SMOKE configs in float32, the card's
-    prefill and three teacher-forced decode steps against the port's CPU
-    path on the same weights (logits within 1e-4, caches within 1e-5);
-    then ``serve_batch`` on starcoder2-3b at full width in bfloat16 (batch
-    8, prompt 1024, 32 greedy tokens, weights from ``init_lm`` on a CUDA
-    generator seeded 0), twice on the same weights, the first call cold;
-    then the full width in float32: teacher-forced prefill over 129
-    positions against prefill over 128 and one decode step, B = 2, within
-    the reference's 5e-3. Between the two widths, ``lm_where_time``."""
+    own). First the ten SMOKE configs in float32, the card's prefill and
+    three teacher-forced decode steps against the port's CPU path on the
+    same weights (logits within 1e-4, caches within 1e-5, the SSD's float32
+    state within 1e-5 of its largest magnitude, no MoE expert choice
+    different); then ``serve_batch`` on starcoder2-3b at full width in
+    bfloat16 (batch 8, prompt 1024, 32 greedy tokens, weights from
+    ``init_lm`` on a CUDA generator seeded 0), twice on the same weights,
+    the first call cold; then the full width in float32: teacher-forced
+    prefill over 129 positions against prefill over 128 and one decode
+    step, B = 2, within the reference's 5e-3. Between the two widths,
+    ``lm_where_time``. Last, ``lm_family_run`` for each of
+    ``LM_FAMILIES``."""
     import copy
     import dataclasses
 
@@ -2445,7 +2613,11 @@ def lm_serve_phase(dev) -> dict:
         diff, ms = timed(device_agreement, cpu_model, copy.deepcopy(cpu_model).to(dev),
                          lm_smoke_batch(cfg, np.random.default_rng(0)), q_chunk=4, kv_chunk=8)
         check(diff["prefill_logits"] <= LM_F32_LOGITS and diff["decode_logits"] <= LM_F32_LOGITS
-              and diff["cache"] <= LM_F32_CACHE, f"lm_serve {arch}: the card differs from the CPU: {diff}")
+              and diff["cache"] <= LM_F32_CACHE and diff.get("state", 0.0) <= LM_F32_CACHE
+              and diff.get("expert_choices_differ", 0) == 0, f"lm_serve {arch}: the card differs from the CPU: {diff}")
+        if "expert_choices_differ" in diff:
+            print(f"lm_serve {arch} SMOKE: {diff['expert_choices_differ']} expert choices differ, card against CPU",
+                  flush=True)
         smoke[arch] = dict(diff, wall_ms=ms)
     info["smoke_vs_cpu"] = smoke
 
@@ -2485,6 +2657,8 @@ def lm_serve_phase(dev) -> dict:
     )
     del model
     torch.cuda.empty_cache()
+    info["families"] = {arch: lm_family_run(arch, dev) for arch in LM_FAMILIES}
+    info["reduced"] = {arch: f["reduced"] for arch, f in info["families"].items() if "reduced" in f}
     return info
 
 

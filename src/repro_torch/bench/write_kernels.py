@@ -8,7 +8,10 @@ takes its merge-rank and histogram measurements from the functions here.
   :func:`run_stack`), held equal to ``merge_run_positions_plain`` and to
   the host merge order (``row_map``); and on a stack of the same shape
   whose appended runs copy key tuples of the base and of each other
-  (``dup_stack``: every appended key equals keys of other runs).
+  (``dup_stack``: every appended key equals keys of other runs); beside
+  it, where the key tuple packs into an int64, one stable
+  ``torch.argsort`` of the packed keys newest run first and the scatter
+  that inverts it, in turns with the kernel.
 * ``hist`` (:func:`hist_case`): ``ecdf_hist`` on each of the three key
   columns of one write batch, binned as the column family's statistics
   bin them, held equal to ``ecdf_hist_plain`` and to ``np.bincount``;
@@ -59,6 +62,7 @@ __all__ = [
     "merge_case",
     "merge_design_bytes",
     "merge_work",
+    "packed_newest_first",
     "run",
     "run_stack",
     "token_hist_case",
@@ -106,10 +110,35 @@ def dup_stack(keys: torch.Tensor, n_base: int, n_lanes: int, *, run_rows: int, n
     return torch.cat(runs, dim=1).contiguous(), starts, n_base + n_runs * run_rows
 
 
+def packed_newest_first(keys, starts, n_rows: int, n_lanes: int):
+    """The library's input for a merge: the device rows run by run from the
+    newest, each run in its own order (``rows``), and their key tuples
+    packed into one int64 (lane 0 most significant, each lane as wide as
+    its largest value), or None for ``packed`` when the lanes need more
+    than 63 bits."""
+    bounds = tuple(int(s) for s in starts) + (n_rows,)
+    rows = torch.cat([torch.arange(bounds[r], bounds[r + 1], device=keys.device)
+                      for r in reversed(range(len(bounds) - 1))])
+    lanes = keys[:n_lanes, :n_rows]
+    if n_rows and int(lanes.min()) < 0:
+        return None, rows
+    widths = [int(lanes[i].max()).bit_length() if n_rows else 0 for i in range(n_lanes)]
+    if sum(widths) > 63:
+        return None, rows
+    packed = torch.zeros(n_rows, dtype=torch.int64, device=keys.device)
+    for i, w in enumerate(widths):
+        packed = (packed << w) | lanes[i, rows].long()
+    return packed, rows
+
+
 def merge_case(keys, starts, n_rows: int, n_lanes: int, *, row_map=None, reps: int = 10) -> dict:
     """``merge_run_positions`` on one stack; raises ``AssertionError`` if
-    it differs from plain or from ``row_map`` (when given). Times by
-    events and under the profiler, the plain version's by events."""
+    it differs from plain, from ``row_map`` (when given) or from the
+    library's. Times by events and under the profiler, the plain
+    version's by events; where the key tuple packs into an int64, the
+    library's (``library``: one stable ``torch.argsort`` of the packed keys
+    newest run first and the scatter that inverts it) in turns with the
+    kernel (kernel, library, library, kernel)."""
 
     def kernel():
         return merge_run_positions(keys, starts, n_rows, n_lanes=n_lanes)
@@ -124,12 +153,26 @@ def merge_case(keys, starts, n_rows: int, n_lanes: int, *, row_map=None, reps: i
         raise AssertionError("merge_run_positions: differs from the host merge order")
     lens = np.diff(np.asarray(tuple(starts) + (n_rows,), np.int64))
     parts = device_ms(kernel, reps, parts=True)
-    return dict(
+    out = dict(
         rows=n_rows, runs=len(starts), run_rows=lens.tolist(), lanes=n_lanes,
         max_abs_err=float((got - want).abs().max()) if n_rows else 0.0,
         ms=events_ms(kernel, reps), device_ms=sum(parts.values()), device_parts_ms=parts,
-        plain_ms=events_ms(plain, 2),
+        plain_ms=events_ms(plain, 2), library_ms=None,
     )
+    packed, rows = packed_newest_first(keys, starts, n_rows, n_lanes)
+    if packed is not None:
+        ranks = torch.arange(n_rows, dtype=torch.int64, device=keys.device)
+
+        def library():
+            pos = torch.empty(n_rows, dtype=torch.int64, device=keys.device)
+            pos[rows[torch.argsort(packed, stable=True)]] = ranks
+            return pos
+
+        if not torch.equal(library(), got):
+            raise AssertionError("merge_run_positions: differs from a stable argsort of the packed keys")
+        turns = _turns(kernel, library, reps)
+        out.update(library_ms=turns["library_ms"], library=dict(turns, packed_bits=int(packed.max()).bit_length()))
+    return out
 
 
 def _turns(kernel, library, reps: int) -> dict:

@@ -23,6 +23,7 @@ import torch
 from repro_torch.configs.registry import ARCHS, get_arch, get_smoke
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.moe import route_log
 from repro_torch.serving.steps import make_decode_step, make_prefill_step, serving_device
 
 __all__ = ["serve_batch", "decode_forward_error", "device_agreement", "main"]
@@ -54,7 +55,6 @@ def serve_batch(
     tokens/s, the generated tokens ``[B, gen_tokens]`` (codebook 0 for
     multi-codebook archs), the last step's logits and the parameter and
     cache bytes."""
-    lm.require_in_slice(cfg)
     dev = serving_device(device)
     if model is None:
         model = lm.init_lm(cfg, generator=torch.Generator(dev).manual_seed(seed), device=dev, dtype=dtype)
@@ -131,27 +131,41 @@ def device_agreement(model_a: lm.LM, model_b: lm.LM, batch: dict, *, n_decode: i
     both prefill the batch's first ``n - n_decode`` positions and decode the
     rest teacher-forced. Returns the largest absolute differences of the
     vocabulary's logits (prefill and decode) and of the caches after each
-    step."""
+    step; for a model with SSD layers the float32 ``state`` entries apart,
+    as ``state``, their difference over their own largest magnitude; for an
+    MoE model ``expert_choices_differ``, the (token, choice) expert
+    selections of all its routing calls that differ."""
     cfg = model_a.cfg
     n = next(iter(batch.values())).shape[1]
     out = {"prefill_logits": 0.0, "decode_logits": 0.0, "cache": 0.0}
-    runs = []
+    runs, routes = [], []
     for model in (model_a, model_b):
         dev = model.device
         on = {k: v.to(dev) for k, v in batch.items()}
         prefill = make_prefill_step(cfg, s_alloc=n, q_chunk=q_chunk, kv_chunk=kv_chunk, device=dev)
         decode = make_decode_step(cfg, device=dev)
-        logits, cache = prefill(model, {k: v[:, : n - n_decode] for k, v in on.items()})
-        steps = [(logits.cpu(), {k: c.to("cpu", copy=True) for k, c in cache.items()})]
-        for pos in range(n - n_decode, n):
-            logits, cache = decode(model, cache, {k: v[:, pos : pos + 1] for k, v in on.items()}, pos)
-            steps.append((logits.cpu(), {k: c.to("cpu", copy=True) for k, c in cache.items()}))
+        with route_log(model) as log:
+            logits, cache = prefill(model, {k: v[:, : n - n_decode] for k, v in on.items()})
+            steps = [(logits.cpu(), {k: c.to("cpu", copy=True) for k, c in cache.items()})]
+            for pos in range(n - n_decode, n):
+                logits, cache = decode(model, cache, {k: v[:, pos : pos + 1] for k, v in on.items()}, pos)
+                steps.append((logits.cpu(), {k: c.to("cpu", copy=True) for k, c in cache.items()}))
         runs.append(steps)
+        routes.append([c["choices"].cpu() for c in log.calls])
     for i, ((la, ca), (lb, cb)) in enumerate(zip(*runs)):
         key = "prefill_logits" if i == 0 else "decode_logits"
         diff = (la[..., : cfg.vocab_size].float() - lb[..., : cfg.vocab_size].float()).abs().max()
         out[key] = max(out[key], float(diff))
-        out["cache"] = max(out["cache"], max(float((ca[k].float() - cb[k].float()).abs().max()) for k in ca))
+        for k in ca:
+            diff = float((ca[k].float() - cb[k].float()).abs().max())
+            if k.endswith("/state"):
+                out["state"] = max(out.get("state", 0.0), diff / max(float(cb[k].abs().max()), 1e-30))
+            else:
+                out["cache"] = max(out["cache"], diff)
+    if routes[0] or routes[1]:
+        if [r.shape for r in routes[0]] != [r.shape for r in routes[1]]:
+            raise AssertionError("the two runs routed a different number or shape of calls")
+        out["expert_choices_differ"] = sum(int((a != b).sum()) for a, b in zip(*routes))
     return out
 
 

@@ -1,6 +1,5 @@
-"""Attention of the port: GQA with RoPE variants and sliding windows.
-
-The counterpart of the GQA half of ``repro.models.attention``:
+"""Attention of the port: GQA (RoPE variants, sliding windows) and MLA
+(DeepSeek-V3), the counterpart of ``repro.models.attention``:
   * full sequence (prefill): ``flash_attention`` (chunked online softmax
     in plain torch ops);
   * decode: one query token against the whole cache, its softmax partial
@@ -8,7 +7,10 @@ The counterpart of the GQA half of ``repro.models.attention``:
     sequence-sharded cache under a mesh axis) comes with the port's
     ``DeviceMesh`` (ROADMAP item 7f).
 
-MLA (DeepSeek-V3) comes in a later slice (item 7c).
+MLA decode takes the absorbed form: scores against the latent cache
+directly (q_nope absorbed through W_uk by the caller, the output through
+W_uv after), so a step's work is O(S · kv_lora_rank), not
+O(S · n_heads · d_head).
 """
 
 from __future__ import annotations
@@ -20,18 +22,20 @@ from torch import nn
 
 from repro_torch.parallel.padding import PaddedDims
 from .config import ArchConfig
-from .layers import NEG, apply_rope, dense, dense_init, flash_attention
+from .layers import NEG, KeepFloat32, apply_rope, dense, dense_init, flash_attention, rmsnorm
 
 __all__ = [
-    "MLA_SLICE",
     "GQA",
+    "MLA",
     "init_gqa",
     "gqa_forward",
     "gqa_project_decode",
     "gqa_attend_decode",
+    "init_mla",
+    "mla_forward",
+    "mla_project_decode",
+    "mla_attend_decode",
 ]
-
-MLA_SLICE = "MLA (DeepSeek-V3) comes in a later slice of the port (ROADMAP item 7c)"
 
 
 class GQA(nn.Module):
@@ -44,8 +48,6 @@ class GQA(nn.Module):
 
 
 def init_gqa(cfg: ArchConfig, pd: PaddedDims, *, generator, device, dtype) -> GQA:
-    if cfg.attention == "mla":
-        raise NotImplementedError(MLA_SLICE)
     d, dh = cfg.d_model, cfg.d_head
     hq, hkv = pd.n_heads, pd.n_kv_heads
     kw = dict(generator=generator, device=device, dtype=dtype)
@@ -88,13 +90,14 @@ def gqa_forward(
     return out, (k, v)
 
 
-def _partial_softmax(scores: torch.Tensor, values: torch.Tensor):
-    """scores [..., S], values [..., S, Dv] → (o, m, l) partials (fp32)."""
+def _partial_softmax(scores: torch.Tensor, values: torch.Tensor, spec: str = "...k,...kd->...d"):
+    """scores [..., S], values [..., S, Dv] → (o, m, l) partials (fp32);
+    ``spec`` contracts the weights with the values."""
     m = scores.amax(dim=-1)
     p = torch.exp(scores - m[..., None])
     p = torch.where(m[..., None] <= NEG / 2, 0.0, p)
     l = p.sum(dim=-1)
-    o = torch.einsum("...k,...kd->...d", p, values.float())
+    o = torch.einsum(spec, p, values.float())
     return o, m, l
 
 
@@ -151,3 +154,116 @@ def gqa_attend_decode(
     o, _, l = _partial_softmax(s, v_cache.transpose(1, 2)[:, :, None, :, :])
     o = _combine_local(o, l)
     return o.to(q.dtype).reshape(B, 1, hq * dh)  # caller applies wo
+
+
+# ---------------------------------------------------------------- MLA --------
+
+
+class MLA(KeepFloat32):
+    """The reference's eight leaves, ``[d_in, d_out]`` each but the norm
+    scales: ``wq_a`` ``[d, rq]``, ``q_a_norm`` ``[rq]``, ``wq_b`` ``[rq,
+    H·(dn+dr)]``, ``wkv_a`` ``[d, rkv+dr]``, ``kv_a_norm`` ``[rkv]``,
+    ``wk_b`` ``[rkv, H·dn]``, ``wv_b`` ``[rkv, H·dv]``, ``wo`` ``[H·dv,
+    d]``; the two norm scales stay float32."""
+
+    FLOAT32 = ("q_a_norm", "kv_a_norm")
+    NAMES = ("wq_a", "q_a_norm", "wq_b", "wkv_a", "kv_a_norm", "wk_b", "wv_b", "wo")
+
+    def __init__(self, **leaves: torch.Tensor):
+        super().__init__()
+        if sorted(leaves) != sorted(self.NAMES):
+            raise ValueError(f"MLA takes the leaves {self.NAMES}, got {sorted(leaves)}")
+        for name in self.NAMES:
+            setattr(self, name, nn.Parameter(leaves[name]))
+
+
+def init_mla(cfg: ArchConfig, pd: PaddedDims, *, generator, device, dtype) -> MLA:
+    d, h = cfg.d_model, pd.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return MLA(
+        wq_a=dense_init(d, rq, **kw),
+        q_a_norm=torch.ones((rq,), device=device, dtype=torch.float32),
+        wq_b=dense_init(rq, h * (dn + dr), **kw),
+        wkv_a=dense_init(d, rkv + dr, **kw),
+        kv_a_norm=torch.ones((rkv,), device=device, dtype=torch.float32),
+        wk_b=dense_init(rkv, h * dn, **kw),
+        wv_b=dense_init(rkv, h * dv, **kw),
+        wo=dense_init(h * dv, d, **kw),
+    )
+
+
+def _mla_qkv(p: MLA, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig, pd: PaddedDims):
+    """(q_nope, q_rope [B,S,H,dn/dr], c_kv [B,S,rkv], k_rope [B,S,dr]); both
+    norms take the default eps 1e-6, not ``cfg.norm_eps``, as the
+    reference's do."""
+    B, S, _ = x.shape
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = dense(rmsnorm(dense(x, p.wq_a), p.q_a_norm), p.wq_b).reshape(B, S, pd.n_heads, dn + dr)
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    kv = dense(x, p.wkv_a)
+    c_kv = rmsnorm(kv[..., : cfg.kv_lora_rank], p.kv_a_norm)
+    k_rope = apply_rope(kv[..., cfg.kv_lora_rank :][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_forward(
+    p: MLA,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: ArchConfig,
+    pd: PaddedDims,
+    *,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    window: int = 0,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Materialized (prefill) MLA → (output [B,S,D], (c_kv, k_rope) for the
+    cache). Keys are [k_nope, k_rope broadcast over the heads], values are
+    ``v_head_dim`` wide, the scale 1/sqrt(dn + dr)."""
+    B, S, _ = x.shape
+    h = pd.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, positions, cfg, pd)
+    k_nope = dense(c_kv, p.wk_b).reshape(B, S, h, dn)
+    v = dense(c_kv, p.wv_b).reshape(B, S, h, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, h, dr)], dim=-1)
+    o = flash_attention(
+        q, k, v, positions, positions,
+        causal=True, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk, scale=1.0 / math.sqrt(dn + dr),
+    )
+    return dense(o.reshape(B, S, h * dv), p.wo), (c_kv, k_rope)
+
+
+def mla_project_decode(
+    p: MLA, x_t: torch.Tensor, pos: int, cfg: ArchConfig, pd: PaddedDims
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode projections: q_nope [B,1,H,dn], q_rope [B,1,H,dr], and the
+    cache entries of slot ``pos``, c_new [B,rkv] and krope_new [B,dr]."""
+    posb = torch.full((x_t.shape[0], 1), pos, dtype=torch.int32, device=x_t.device)
+    q_nope, q_rope, c_new, krope_new = _mla_qkv(p, x_t, posb, cfg, pd)
+    return q_nope, q_rope, c_new[:, 0], krope_new[:, 0]
+
+
+def mla_attend_decode(
+    q_eff: torch.Tensor,  # [B, 1, H, rkv]: q_nope absorbed through W_uk
+    q_rope: torch.Tensor,  # [B, 1, H, dr]
+    ckv_cache: torch.Tensor,  # [B, S, rkv]
+    krope_cache: torch.Tensor,  # [B, S, dr]
+    kv_pos: torch.Tensor,  # [S]
+    pos: int,
+    cfg: ArchConfig,
+    pd: PaddedDims,
+) -> torch.Tensor:
+    """Absorbed-form MLA decode → the latent context [B, H, rkv] in the
+    cache's type; the caller applies W_uv and ``wo``."""
+    q_eff = q_eff[:, 0].float()
+    s_nope = torch.einsum("bhr,bsr->bhs", q_eff, ckv_cache.float())
+    s_rope = torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(), krope_cache.float())
+    s = (s_nope + s_rope) / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    valid = (kv_pos >= 0) & (kv_pos <= pos)
+    s = torch.where(valid[None, None, :], s, NEG)
+    o, _, l = _partial_softmax(s, ckv_cache, "bhs,bsr->bhr")  # over the latent
+    return _combine_local(o, l).to(krope_cache.dtype)

@@ -1,10 +1,17 @@
-"""Transformer blocks of the port: kind "attn" (pre-norm GQA attention +
-MLP), the counterpart of ``repro.models.blocks``.
+"""Transformer blocks of the port, the counterpart of
+``repro.models.blocks``: kinds
 
-Kinds "moe", "ssm" and "hybrid" come in later slices (ROADMAP items 7b
-and 7d). A block's decode writes its new K and V into the cache at slot
-``pos`` in place, then attends over the whole cache: the reference's
-``_attend_gqa_sharded`` with ``ctx=None``.
+  attn   — pre-norm attention (GQA or MLA) + MLP
+  moe    — pre-norm attention + (shared-expert MLP ∥ routed MoE)
+  ssm    — pre-norm Mamba-2 SSD only (Mamba blocks carry no MLP)
+  hybrid — Hymba: attention ∥ SSD on the same normed input, each branch
+           RMS-normed, then averaged, + MLP
+
+A block's prefill returns its cache entries in the reference's order
+(``k, v`` or ``ckv, krope``, then ``conv_x, conv_bc, state``). Its decode
+writes every entry in place: the attention entries at slot ``pos``, then
+attends over the whole cache (the reference's ``_attend_*_sharded`` with
+``ctx=None``); the SSD entries whole.
 """
 
 from __future__ import annotations
@@ -14,36 +21,28 @@ from torch import nn
 
 from repro_torch.parallel.padding import PaddedDims
 from . import attention as attn_mod
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .config import ArchConfig
-from .layers import dense, dense_init, mlp_apply, rmsnorm, rmsnorm_init
+from .layers import KeepFloat32, dense, dense_init, mlp_apply, rmsnorm, rmsnorm_init
 
-__all__ = ["Block", "RMSNorm", "MLP", "init_block", "GLOBAL_WINDOW", "KIND_SLICES"]
+__all__ = ["Block", "RMSNorm", "MLP", "init_block", "init_mlp", "GLOBAL_WINDOW", "KINDS"]
 
 #: sentinel window for "global attention" layers inside a SWA arch
 GLOBAL_WINDOW = 1 << 30
 
-#: block kinds that later slices of the port bring, and where
-KIND_SLICES = {
-    "moe": "MoE blocks (models/moe.py) come in a later slice of the port (ROADMAP item 7b)",
-    "ssm": "SSD blocks (models/ssm.py) come in a later slice of the port (ROADMAP item 7d)",
-    "hybrid": "hybrid attention-SSD blocks come in a later slice of the port (ROADMAP item 7d)",
-}
+KINDS = ("attn", "moe", "ssm", "hybrid")
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(KeepFloat32):
     """An RMSNorm scale that stays float32 whatever ``Module.to`` casts the
     rest of the model to, as the reference keeps its norm scales."""
+
+    FLOAT32 = ("scale",)
 
     def __init__(self, scale: torch.Tensor):
         super().__init__()
         self.scale = nn.Parameter(scale)
-
-    def _apply(self, fn, recurse=True):
-        def keep_float32(t):
-            out = fn(t)
-            return out if out.dtype == torch.float32 else t.to(device=out.device, dtype=torch.float32)
-
-        return super()._apply(keep_float32, recurse)
 
     def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
         return rmsnorm(x, self.scale, eps)
@@ -65,53 +64,126 @@ def init_mlp(d: int, d_ff: int, gated: bool, **kw) -> MLP:
 
 
 class Block(nn.Module):
-    """Pre-norm GQA attention, then (when ``d_ff > 0``) a pre-norm MLP, each
-    added to the residual stream."""
+    """One layer of kind ``kind``; the parts its kind has are set, the
+    others are None: ``attn`` (``GQA`` or ``MLA``), ``ssm``, the hybrid's
+    ``norm_attn`` and ``norm_ssm``, and after ``ln2`` any of ``shared``,
+    ``moe`` and ``mlp``, summed."""
 
-    def __init__(self, cfg: ArchConfig, pd: PaddedDims, ln1: RMSNorm, attn: attn_mod.GQA,
-                 ln2: RMSNorm | None = None, mlp: MLP | None = None):
+    def __init__(self, cfg: ArchConfig, pd: PaddedDims, kind: str, ln1: RMSNorm, *,
+                 attn: nn.Module | None = None, ssm: ssm_mod.SSM | None = None,
+                 norm_attn: RMSNorm | None = None, norm_ssm: RMSNorm | None = None,
+                 ln2: RMSNorm | None = None, mlp: MLP | None = None, moe: moe_mod.MoE | None = None,
+                 shared: MLP | None = None):
         super().__init__()
-        self.cfg, self.pd = cfg, pd
-        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+        if kind not in KINDS:
+            raise ValueError(f"unknown block kind {kind!r}; known: {KINDS}")
+        self.cfg, self.pd, self.kind = cfg, pd, kind
+        self.ln1, self.attn, self.ssm = ln1, attn, ssm
+        self.norm_attn, self.norm_ssm = norm_attn, norm_ssm
+        self.ln2, self.shared, self.moe, self.mlp = ln2, shared, moe, mlp
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *, window: int = 0,
                 q_chunk: int = 512, kv_chunk: int = 1024) -> tuple[torch.Tensor, tuple]:
-        """Prefill: (x_out, (k, v)) with k, v [B, S, Hkv, Dh]."""
-        cfg = self.cfg
-        xn = self.ln1(x, cfg.norm_eps)
-        attn_out, kv = attn_mod.gqa_forward(
-            self.attn, xn, positions, cfg, self.pd, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
-        )
-        return self._mlp(x + attn_out), kv
-
-    def decode(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int, *,
-               window: int = 0) -> torch.Tensor:
-        """One token x [B, 1, D]; writes slot ``pos`` of this layer's caches
-        ([B, S_alloc, Hkv, Dh]) in place before attending."""
+        """Prefill: (x_out, the layer's cache entries)."""
         cfg, pd = self.cfg, self.pd
         xn = self.ln1(x, cfg.norm_eps)
+        entries: tuple = ()
+        attn_out = ssm_out = None
+        if self.attn is not None:
+            fwd = attn_mod.mla_forward if cfg.attention == "mla" else attn_mod.gqa_forward
+            attn_out, kv = fwd(self.attn, xn, positions, cfg, pd, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
+            entries += kv
+        if self.ssm is not None:
+            ssm_out, st = ssm_mod.ssm_forward(self.ssm, xn, cfg, return_state=True)
+            entries += (st["conv_x"], st["conv_bc"], st["state"])
+        return self._ffn(self._mix(x, attn_out, ssm_out)), entries
+
+    def decode(self, x: torch.Tensor, cache: tuple, pos: int, *, window: int = 0) -> torch.Tensor:
+        """One token x [B, 1, D]; ``cache`` holds this layer's entries in the
+        prefill's order, each written in place."""
+        cfg = self.cfg
+        xn = self.ln1(x, cfg.norm_eps)
+        attn_out = ssm_out = None
+        if self.attn is not None:
+            decode = self._mla_decode if cfg.attention == "mla" else self._gqa_decode
+            attn_out = decode(xn, cache[0], cache[1], pos, window)
+        if self.ssm is not None:
+            names = ("conv_x", "conv_bc", "state")
+            entries = cache[-3:]  # after the attention entries, if any
+            ssm_out, new = ssm_mod.ssm_decode(self.ssm, xn, dict(zip(names, entries)), cfg)
+            for name, entry in zip(names, entries):
+                entry.copy_(new[name])
+        return self._ffn(self._mix(x, attn_out, ssm_out))
+
+    def _gqa_decode(self, xn, k_cache, v_cache, pos: int, window: int) -> torch.Tensor:
+        """Writes slot ``pos`` of the caches ([B, S_alloc, Hkv, Dh]), then attends."""
+        cfg, pd = self.cfg, self.pd
         q, k_new, v_new = attn_mod.gqa_project_decode(self.attn, xn, pos, cfg, pd)
         k_cache[:, pos] = k_new.to(k_cache.dtype)
         v_cache[:, pos] = v_new.to(v_cache.dtype)
-        kv_pos = torch.arange(k_cache.shape[1], dtype=torch.int32, device=x.device)
+        kv_pos = torch.arange(k_cache.shape[1], dtype=torch.int32, device=xn.device)
         o = attn_mod.gqa_attend_decode(q, k_cache, v_cache, kv_pos, pos, cfg, pd, window=window)
-        return self._mlp(x + dense(o, self.attn.wo))
+        return dense(o, self.attn.wo)
 
-    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mlp is None:
+    def _mla_decode(self, xn, ckv, krope, pos: int, window: int) -> torch.Tensor:
+        """Absorbed MLA: q_nope through W_uk in float32, slot ``pos`` of the
+        latent and rope caches written, scores over both, then W_uv and
+        ``wo``. Decode takes no window, as the reference's."""
+        cfg, pd = self.cfg, self.pd
+        B, rkv, h = xn.shape[0], cfg.kv_lora_rank, pd.n_heads
+        q_nope, q_rope, c_new, kr_new = attn_mod.mla_project_decode(self.attn, xn, pos, cfg, pd)
+        wk_b = self.attn.wk_b.reshape(rkv, h, cfg.qk_nope_dim)
+        q_eff = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wk_b.float())
+        ckv[:, pos] = c_new.to(ckv.dtype)
+        krope[:, pos] = kr_new.to(krope.dtype)
+        kv_pos = torch.arange(ckv.shape[1], dtype=torch.int32, device=xn.device)
+        ctx = attn_mod.mla_attend_decode(q_eff, q_rope, ckv, krope, kv_pos, pos, cfg, pd)
+        wv_b = self.attn.wv_b.reshape(rkv, h, cfg.v_head_dim)
+        o = torch.einsum("bhr,rhd->bhd", ctx.float(), wv_b.float())
+        return dense(o.to(xn.dtype).reshape(B, 1, h * cfg.v_head_dim), self.attn.wo)
+
+    def _mix(self, x, attn_out, ssm_out) -> torch.Tensor:
+        if self.kind == "hybrid":
+            eps = self.cfg.norm_eps
+            return x + 0.5 * (self.norm_attn(attn_out, eps) + self.norm_ssm(ssm_out, eps))
+        return x + (ssm_out if self.kind == "ssm" else attn_out)
+
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        if self.ln2 is None:
             return x
-        xn2 = self.ln2(x, self.cfg.norm_eps)
-        return x + mlp_apply(self.mlp, xn2, self.cfg.act, self.cfg.gated_mlp)
+        cfg = self.cfg
+        xn2 = self.ln2(x, cfg.norm_eps)
+        parts = []
+        if self.shared is not None:
+            parts.append(mlp_apply(self.shared, xn2, cfg.act, cfg.gated_mlp))
+        if self.moe is not None:
+            y, _ = moe_mod.moe_forward(self.moe, xn2, cfg)
+            parts.append(y.to(x.dtype))
+        if self.mlp is not None:
+            parts.append(mlp_apply(self.mlp, xn2, cfg.act, cfg.gated_mlp))
+        h = parts[0]
+        for part in parts[1:]:
+            h = h + part
+        return x + h
 
 
 def init_block(cfg: ArchConfig, pd: PaddedDims, kind: str, d_ff: int, *, generator, device, dtype) -> Block:
-    if kind in KIND_SLICES:
-        raise NotImplementedError(KIND_SLICES[kind])
+    """A block of ``kind`` with the reference's parts and distributions."""
     kw = dict(generator=generator, device=device, dtype=dtype)
     d = cfg.d_model
-    ln1 = RMSNorm(rmsnorm_init(d, device=device))
-    attn = attn_mod.init_gqa(cfg, pd, **kw)
-    if d_ff <= 0:
-        return Block(cfg, pd, ln1, attn)
-    mlp = init_mlp(d, d_ff, cfg.gated_mlp, **kw)
-    return Block(cfg, pd, ln1, attn, RMSNorm(rmsnorm_init(d, device=device)), mlp)
+    norm = lambda: RMSNorm(rmsnorm_init(d, device=device))  # noqa: E731
+    parts: dict = {}
+    if kind in ("attn", "moe", "hybrid"):
+        parts["attn"] = (attn_mod.init_mla if cfg.attention == "mla" else attn_mod.init_gqa)(cfg, pd, **kw)
+    if kind in ("ssm", "hybrid"):
+        parts["ssm"] = ssm_mod.init_ssm(cfg, **kw)
+    if kind == "hybrid":
+        parts.update(norm_attn=norm(), norm_ssm=norm())
+    if kind == "moe":
+        parts["moe"] = moe_mod.init_moe(cfg, **kw)
+        if cfg.n_shared_experts:
+            parts["shared"] = init_mlp(d, cfg.n_shared_experts * cfg.moe_d_ff, cfg.gated_mlp, **kw)
+        parts["ln2"] = norm()
+    elif kind in ("attn", "hybrid") and d_ff > 0:
+        parts.update(mlp=init_mlp(d, d_ff, cfg.gated_mlp, **kw), ln2=norm())
+    return Block(cfg, pd, kind, norm(), **parts)

@@ -16,8 +16,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 __all__ = [
+    "KeepFloat32",
     "dense_init",
     "rmsnorm_init",
     "rmsnorm",
@@ -36,6 +38,25 @@ NEG = -1e30
 INT32_MAX = 2**31 - 1
 
 
+class KeepFloat32(nn.Module):
+    """A module whose parameters named in ``FLOAT32`` stay float32 whatever
+    ``Module.to`` casts the rest of the model to, as the reference keeps its
+    norm scales, the MoE router and the SSD decay parameters."""
+
+    FLOAT32: tuple[str, ...] = ()
+
+    def _apply(self, fn, recurse=True):
+        keep = {id(self._parameters[n]) for n in self.FLOAT32 if self._parameters.get(n) is not None}
+
+        def keep_float32(t):
+            out = fn(t)
+            if id(t) in keep and out.dtype != torch.float32:
+                return t.to(device=out.device, dtype=torch.float32)
+            return out
+
+        return super()._apply(keep_float32, recurse)
+
+
 # -- init ---------------------------------------------------------------------
 
 
@@ -44,7 +65,7 @@ def dense_init(d_in: int, d_out: int, *, generator, device, dtype) -> torch.Tens
     float32 on ``generator`` and cast to ``dtype``."""
     w = torch.empty((d_in, d_out), device=device, dtype=torch.float32)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w / math.sqrt(d_in)).to(dtype)
+    return w.div_(math.sqrt(d_in)).to(dtype)
 
 
 def rmsnorm_init(d: int, *, device) -> torch.Tensor:

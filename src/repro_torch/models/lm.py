@@ -1,16 +1,19 @@
 """Decoder LM of the port, serving half: the counterpart of
 ``repro.models.lm``'s ``init_lm``, ``init_cache``, ``prefill`` and
-``decode_step`` for the architectures whose layers form one stack of
-kind "attn" (GQA attention + MLP): starcoder2-3b, yi-34b, chatglm3-6b,
-minitron-8b, musicgen-medium and paligemma-3b.
+``decode_step`` for every registered architecture: the "attn" stacks
+(GQA or MLA), DeepSeek-V3's dense prefix and MoE stacks, qwen2-moe's MoE
+stack, Mamba-2's SSD stack and Hymba's hybrid stack with its per-layer
+windows.
 
 Layers are organized into stacks as in the reference; where the
 reference stacks each stack's layers on a leading axis and scans them,
 ``LM`` holds one ``nn.ModuleList`` of blocks per stack and loops. The
-cache is the reference's dict of stacked tensors, ``"<stack>/k"`` and
-``"<stack>/v"`` of ``[L, B, S_alloc, Hkv, Dh]``; ``decode_step`` writes
-it in place. MoE, MLA with MTP, and the SSD and hybrid blocks come in
-later slices (ROADMAP items 7b-7d), training with item 7e.
+cache is the reference's dict of stacked tensors ``"<stack>/<entry>"``
+(``k``/``v`` ``[L, B, S_alloc, Hkv, Dh]``, ``ckv``/``krope`` ``[L, B,
+S_alloc, r]``, ``conv_x``/``conv_bc`` ``[L, B, K-1, C]`` and the float32
+``state`` ``[L, B, H, P, N]``); ``decode_step`` writes it in place. The
+MTP head's weights are built and carried, but only training (ROADMAP
+item 7e) reads them.
 """
 
 from __future__ import annotations
@@ -22,16 +25,15 @@ from torch import nn
 
 from repro_torch.parallel.padding import PaddedDims, padded_dims
 from . import blocks as blk
-from .attention import MLA_SLICE
+from . import ssm as ssm_mod
 from .config import ArchConfig
 from .layers import NEG, dense, dense_init, rmsnorm_init
 
 __all__ = [
     "LM",
+    "MTP",
     "StackSpec",
     "stacks_for",
-    "unported",
-    "require_in_slice",
     "init_lm",
     "init_cache",
     "prefill",
@@ -62,22 +64,6 @@ def stacks_for(cfg: ArchConfig) -> list[StackSpec]:
     return [StackSpec("main", "attn", cfg.n_layers, cfg.d_ff)]
 
 
-def unported(cfg: ArchConfig) -> str | None:
-    """Why ``cfg`` cannot be served by this slice of the port, or None."""
-    if cfg.attention == "mla" or cfg.mtp:
-        return MLA_SLICE
-    for spec in stacks_for(cfg):
-        if spec.kind in blk.KIND_SLICES:
-            return blk.KIND_SLICES[spec.kind]
-    return None
-
-
-def require_in_slice(cfg: ArchConfig) -> None:
-    reason = unported(cfg)
-    if reason is not None:
-        raise NotImplementedError(f"{cfg.name}: {reason}")
-
-
 def _windows_for(cfg: ArchConfig, spec: StackSpec, layer_offset: int) -> list[int] | int:
     """Per-layer sliding windows; 0 → global (no window mask)."""
     if cfg.sliding_window <= 0:
@@ -96,40 +82,49 @@ def torch_dtype(name: str | torch.dtype) -> torch.dtype:
 # ---------------------------------------------------------------- model -------
 
 
+class MTP(nn.Module):
+    """DeepSeek-V3's multi-token-prediction head: ``proj`` ``[2D, D]``, an
+    "attn" ``block`` and ``norm``. Serving never reads it."""
+
+    def __init__(self, proj: torch.Tensor, block: blk.Block, norm: blk.RMSNorm):
+        super().__init__()
+        self.proj, self.block, self.norm = nn.Parameter(proj), block, norm
+
+
 class LM(nn.Module):
     """The weights of one architecture: ``embed`` ``[V_pad, D]`` (token
-    inputs), ``stacks[name][layer]`` blocks, ``final_norm`` and, untied,
-    ``head`` ``[D, V_pad]`` or ``[CB, D, V_pad]``. The activations take the
-    blocks' weight type; norm scales stay float32."""
+    inputs), ``stacks[name][layer]`` blocks, ``final_norm``, untied
+    ``head`` ``[D, V_pad]`` or ``[CB, D, V_pad]``, and ``mtp`` when the
+    config has one. The activations take the blocks' weight type; norm
+    scales, the router and the SSD decay parameters stay float32."""
 
     def __init__(self, cfg: ArchConfig, embed: torch.Tensor | None, stacks: dict[str, list[blk.Block]],
-                 final_norm: blk.RMSNorm, head: torch.Tensor | None):
+                 final_norm: blk.RMSNorm, head: torch.Tensor | None, mtp: MTP | None = None):
         super().__init__()
-        require_in_slice(cfg)
         self.cfg, self.pd = cfg, padded_dims(cfg, 1)
         self.embed = None if embed is None else nn.Parameter(embed)
         self.stacks = nn.ModuleDict({name: nn.ModuleList(layers) for name, layers in stacks.items()})
         self.final_norm = final_norm
         self.head = None if head is None else nn.Parameter(head)
+        self.mtp = mtp
 
     @property
     def dtype(self) -> torch.dtype:
-        return self._first_weight().dtype
+        """The weights' (and activations') type: the first parameter that is
+        not float32, else float32."""
+        return next((p.dtype for p in self.parameters() if p.dtype != torch.float32), torch.float32)
 
     @property
     def device(self) -> torch.device:
-        return self._first_weight().device
-
-    def _first_weight(self) -> torch.Tensor:
-        return next(iter(self.stacks.values()))[0].attn.wq
+        return next(self.parameters()).device
 
 
 def init_lm(cfg: ArchConfig, *, generator: torch.Generator, device, dtype=None) -> LM:
     """Random weights from ``generator`` with the reference's distributions:
     dense weights truncated normal on [-2, 2] over sqrt(d_in), the
-    embedding normal times 0.02, norm scales ones in float32. ``dtype``
-    defaults to ``cfg.dtype``; ``device`` must be the generator's."""
-    require_in_slice(cfg)
+    embedding normal times 0.02, norm scales ones in float32, the SSD's
+    parameters as ``ssm.init_ssm`` draws them. ``dtype`` defaults to
+    ``cfg.dtype``; ``device`` must be the generator's."""
     dtype = torch_dtype(dtype or cfg.dtype)
     pd = padded_dims(cfg, 1)
     kw = dict(generator=generator, device=device, dtype=dtype)
@@ -148,7 +143,14 @@ def init_lm(cfg: ArchConfig, *, generator: torch.Generator, device, dtype=None) 
             head = torch.stack([dense_init(cfg.d_model, pd.vocab_size, **kw) for _ in range(cfg.n_codebooks)])
         else:
             head = dense_init(cfg.d_model, pd.vocab_size, **kw)
-    return LM(cfg, embed, stacks, final_norm, head)
+    mtp = None
+    if cfg.mtp:
+        mtp = MTP(
+            dense_init(2 * cfg.d_model, cfg.d_model, **kw),
+            blk.init_block(cfg, pd, "attn", cfg.dense_d_ff or cfg.d_ff or 4 * cfg.d_model, **kw),
+            blk.RMSNorm(rmsnorm_init(cfg.d_model, device=device)),
+        )
+    return LM(cfg, embed, stacks, final_norm, head, mtp)
 
 
 # ---------------------------------------------------------------- embed/head ---
@@ -184,23 +186,45 @@ def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------- cache --------
 
 
+#: the attention entries, written at their slot and padded to ``S_alloc``
+SEQ_ENTRIES = ("k", "v", "ckv", "krope")
+
+
 def _cache_entry_shapes(cfg: ArchConfig, pd: PaddedDims, spec: StackSpec, B: int, S: int):
-    """(name, shape) per cache tensor of one stack."""
-    kv = (spec.n_layers, B, S, pd.n_kv_heads, cfg.d_head)
-    return [("k", kv), ("v", kv)]
+    """(name, shape, float32 whatever the model's type) per cache tensor of
+    one stack, in the reference's order."""
+    L = spec.n_layers
+    out = []
+    if spec.kind in ("attn", "moe", "hybrid"):
+        if cfg.attention == "mla":
+            out += [("ckv", (L, B, S, cfg.kv_lora_rank), False), ("krope", (L, B, S, cfg.qk_rope_dim), False)]
+        else:
+            kv = (L, B, S, pd.n_kv_heads, cfg.d_head)
+            out += [("k", kv, False), ("v", kv, False)]
+    if spec.kind in ("ssm", "hybrid"):
+        dims = ssm_mod.ssm_dims(cfg)
+        out += [
+            ("conv_x", (L, B, cfg.ssm_conv - 1, dims["di"]), False),
+            ("conv_bc", (L, B, cfg.ssm_conv - 1, 2 * dims["N"]), False),
+            ("state", (L, B, dims["H"], dims["P"], dims["N"]), True),
+        ]
+    return out
 
 
 def init_cache(cfg: ArchConfig, B: int, S_alloc: int, *, device, dtype=None) -> dict[str, torch.Tensor]:
     """A zeroed cache for ``B`` sequences of ``S_alloc`` slots, in ``dtype``
-    (default ``cfg.dtype``)."""
-    require_in_slice(cfg)
+    (default ``cfg.dtype``) but the SSD ``state``, float32."""
     pd = padded_dims(cfg, 1)
     dtype = torch_dtype(dtype or cfg.dtype)
     return {
-        f"{spec.name}/{name}": torch.zeros(shape, device=device, dtype=dtype)
+        f"{spec.name}/{name}": torch.zeros(shape, device=device, dtype=torch.float32 if f32 else dtype)
         for spec in stacks_for(cfg)
-        for name, shape in _cache_entry_shapes(cfg, pd, spec, B, S_alloc)
+        for name, shape, f32 in _cache_entry_shapes(cfg, pd, spec, B, S_alloc)
     }
+
+
+def _entry_names(cfg: ArchConfig, spec: StackSpec) -> list[str]:
+    return [name for name, _, _ in _cache_entry_shapes(cfg, padded_dims(cfg, 1), spec, 1, 1)]
 
 
 # ---------------------------------------------------------------- prefill ------
@@ -209,7 +233,8 @@ def init_cache(cfg: ArchConfig, B: int, S_alloc: int, *, device, dtype=None) -> 
 def prefill(model: LM, batch: dict, *, s_alloc: int | None = None, q_chunk: int = 512,
             kv_chunk: int = 1024) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Full-prompt forward → (logits of the last position, the cache primed
-    with the prompt's K and V, zeros up to ``s_alloc``)."""
+    with the prompt: attention entries padded with zeros up to ``s_alloc``,
+    the SSD entries as the prompt leaves them)."""
     cfg = model.cfg
     x = _embed_in(model, batch)
     B, S = x.shape[:2]
@@ -219,12 +244,15 @@ def prefill(model: LM, batch: dict, *, s_alloc: int | None = None, q_chunk: int 
     off = 0
     for spec in stacks_for(cfg):
         windows = _windows_for(cfg, spec, off)
-        ck, cv = cache[f"{spec.name}/k"], cache[f"{spec.name}/v"]
+        names = _entry_names(cfg, spec)
         for i, block in enumerate(model.stacks[spec.name]):
             window = windows if isinstance(windows, int) else windows[i]
-            x, (k, v) = block(x, positions, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
-            ck[i, :, :S] = k
-            cv[i, :, :S] = v
+            x, entries = block(x, positions, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
+            for name, entry in zip(names, entries):
+                if name in SEQ_ENTRIES:
+                    cache[f"{spec.name}/{name}"][i, :, :S] = entry
+                else:
+                    cache[f"{spec.name}/{name}"][i] = entry
         off += spec.n_layers
     h = model.final_norm(x[:, -1:], cfg.norm_eps)
     return _logits(model, h)[:, 0], cache
@@ -236,17 +264,17 @@ def prefill(model: LM, batch: dict, *, s_alloc: int | None = None, q_chunk: int 
 def decode_step(model: LM, cache: dict[str, torch.Tensor], batch_t: dict,
                 pos: int) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One token (``{"tokens": [B,1]}`` or ``{"embeds": [B,1,D]}``) at
-    position ``pos`` → (logits [B, V(·CB)], the cache, written in place at
-    slot ``pos``)."""
+    position ``pos`` → (logits [B, V(·CB)], the cache, written in place:
+    the attention entries at slot ``pos``, the SSD entries whole)."""
     cfg = model.cfg
     x = _embed_in(model, batch_t)
     off = 0
     for spec in stacks_for(cfg):
         windows = _windows_for(cfg, spec, off)
-        ck, cv = cache[f"{spec.name}/k"], cache[f"{spec.name}/v"]
+        stack = [cache[f"{spec.name}/{name}"] for name in _entry_names(cfg, spec)]
         for i, block in enumerate(model.stacks[spec.name]):
             window = windows if isinstance(windows, int) else windows[i]
-            x = block.decode(x, ck[i], cv[i], pos, window=window)
+            x = block.decode(x, tuple(entry[i] for entry in stack), pos, window=window)
         off += spec.n_layers
     h = model.final_norm(x, cfg.norm_eps)
     return _logits(model, h)[:, 0], cache

@@ -52,7 +52,6 @@ def serving_device(device=None) -> torch.device:
 
 
 def _check(cfg: ArchConfig, ctx, serve_sharding: str) -> None:
-    lm.require_in_slice(cfg)
     if ctx is not None or serve_sharding != "fsdp":
         raise NotImplementedError(MESH_SLICE)
 

@@ -1182,7 +1182,8 @@ def test_traced_frontdoor_on_the_card_answers_like_a_host_twin(cuda_device):
             assert r.result.value == want.value
 
 
-LM_ARCHS = ("starcoder2-3b", "yi-34b", "chatglm3-6b", "minitron-8b", "musicgen-medium", "paligemma-3b")
+LM_ARCHS = ("starcoder2-3b", "yi-34b", "chatglm3-6b", "minitron-8b", "musicgen-medium", "paligemma-3b",
+            "qwen2-moe-a2.7b", "deepseek-v3-671b", "mamba2-780m", "hymba-1.5b")
 
 
 @pytest.mark.cuda
@@ -1202,5 +1203,10 @@ def test_lm_serving_on_the_card_matches_the_cpu(cuda_device, arch):
         batch = {"embeds": torch.as_tensor(rng.normal(0, 1, (2, 17, cfg.d_model)).astype(np.float32))}
     diff = device_agreement(cpu_model, card_model, batch, q_chunk=4, kv_chunk=8)
     assert diff["prefill_logits"] <= 1e-4 and diff["decode_logits"] <= 1e-4 and diff["cache"] <= 1e-5, diff
+    assert diff.get("state", 0.0) <= 1e-5, diff  # the SSD's float32 state, relative to its largest magnitude
+    assert diff.get("expert_choices_differ", 0) == 0, diff
+    if cfg.is_moe:  # decode's B tokens would overflow the experts at the config's capacity
+        cfg = dataclasses.replace(cfg, capacity_factor=64.0)
+        card_model = init_lm(cfg, generator=torch.Generator().manual_seed(3), device="cpu").to(cuda_device)
     on_card = {k: v.to(cuda_device) for k, v in batch.items()}
     assert decode_forward_error(card_model, on_card, device=cuda_device, q_chunk=4, kv_chunk=4) < 5e-3

@@ -384,6 +384,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.ft.chaos, repro_torch.obs.export, repro_torch.obs.__main__\n"
         "import repro_torch.launch.serve, repro_torch.models.lm, repro_torch.serving.steps\n"
         "import repro_torch.models.convert, repro_torch.configs, repro_torch.parallel.padding\n"
+        "import repro_torch.models.moe, repro_torch.models.ssm\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke_import')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

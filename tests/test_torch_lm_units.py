@@ -1,4 +1,4 @@
-"""The port's LM layers, configs and slice boundaries against the
+"""The port's LM layers, configs and serving boundaries against the
 reference, on the CPU.
 
 The layers (``repro_torch.models.layers`` and the GQA half of
@@ -6,10 +6,11 @@ The layers (``repro_torch.models.layers`` and the GQA half of
 reference's (``repro.models``, JAX on the CPU) and must agree: float32
 within 1e-5, bfloat16 within a few units of its last place. The ten
 configs, their parameter counts and their TP padding must equal the
-reference's field for field. The four architectures outside this slice
-must raise ``NotImplementedError`` naming the slice that brings them, and
-the serving path must refuse to run without a CUDA device unless asked
-for the CPU.
+reference's field for field, and ``init_lm`` must build the reference's
+structure for each. The serving path must refuse to run without a CUDA
+device unless asked for the CPU, and on a mesh (ROADMAP item 7f). The
+MoE, SSD, MLA and hybrid modules have their own file,
+``tests/test_torch_lm_families.py``.
 """
 
 import dataclasses
@@ -39,8 +40,7 @@ from repro_torch.models.convert import lm_from_reference
 from repro_torch.serving import steps
 
 F32_TOL = 1e-5
-IN_SLICE = ("starcoder2-3b", "yi-34b", "chatglm3-6b", "minitron-8b", "musicgen-medium", "paligemma-3b")
-OUTSIDE = {"qwen2-moe-a2.7b": "7b", "deepseek-v3-671b": "7c", "mamba2-780m": "7d", "hymba-1.5b": "7d"}
+ARCHS = RR.ARCHS
 
 
 def _both(a: np.ndarray, dtype: str):
@@ -224,26 +224,7 @@ def test_paligemma_vocabulary_pads_to_257280_at_tp1():
     assert TP.padding_report(cfg, 1) == {"vocab_size": (257_216, 257_280)}
 
 
-# -- the slice's boundaries ------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", sorted(OUTSIDE))
-def test_architectures_outside_the_slice_raise(arch):
-    cfg = TR.get_smoke(arch)
-    match = f"ROADMAP item {OUTSIDE[arch]}"
-    calls = [
-        lambda: lm.init_lm(cfg, generator=torch.Generator().manual_seed(0), device="cpu"),
-        lambda: lm.init_cache(cfg, 2, 8, device="cpu"),
-        lambda: steps.make_prefill_step(cfg, s_alloc=8, device="cpu"),
-        lambda: steps.make_decode_step(cfg, device="cpu"),
-        lambda: serve_batch(cfg, batch_size=1, prompt_len=4, gen_tokens=1, device="cpu"),
-        lambda: lm_from_reference({}, cfg, device="cpu"),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=match):
-            call()
-    assert lm.unported(cfg) is not None
-    assert all(lm.unported(TR.get_arch(a)) is None for a in IN_SLICE)
+# -- the serving path's boundaries ------------------------------------------------------------
 
 
 def test_serving_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
@@ -294,12 +275,20 @@ def test_exact_matmul_turns_reduced_precision_off_and_restores_it():
 # -- weights ---------------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", IN_SLICE)
+#: float32 leaves that are not norm scales, and how the reference draws them
+SSD_FLOAT32 = ("A_log", "D", "dt_bias")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_init_lm_has_the_reference_structure_and_distributions(arch):
     """``init_lm`` makes the tensors ``lm_from_reference`` makes from the
-    reference's ``init_lm`` pytree (names, shapes, types), drawn as the reference
-    draws them: dense weights inside ±2/sqrt(d_in), the embedding's spread
-    0.02, norm scales ones in float32."""
+    reference's ``init_lm`` pytree (names, shapes, types; the MTP head
+    included), drawn as the reference draws them: dense weights and
+    experts inside ±2/sqrt(d_in), the embedding's spread 0.02, norm scales
+    ones in float32, the router float32, the SSD's conv weights normal
+    times 0.1, zero conv biases, ``A_log = log(linspace(1, 16, H))``,
+    ``D`` ones and ``dt_bias`` the inverse softplus of a dt in [0.001,
+    0.1]."""
     cfg = TR.get_smoke(arch)
     model = lm.init_lm(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     shapes = jax.eval_shape(lambda key: RLM.init_lm(key, RR.get_smoke(arch)), jax.random.PRNGKey(0))
@@ -307,13 +296,31 @@ def test_init_lm_has_the_reference_structure_and_distributions(arch):
     carried = lm_from_reference(ref, cfg, device="cpu")
     mine = {n: (tuple(p.shape), p.dtype) for n, p in model.named_parameters()}
     assert mine == {n: (tuple(p.shape), p.dtype) for n, p in carried.named_parameters()}
+    n_leaves = len(jax.tree.leaves(shapes))
+    assert len(mine) == n_leaves + sum(  # the reference stacks each stack's layers on one leaf
+        (len(jax.tree.leaves(shapes[f"stack_{s.name}"])) * (s.n_layers - 1)) for s in lm.stacks_for(cfg)
+    )
+    assert (model.mtp is not None) == cfg.mtp
     for name, p in model.named_parameters():
         w = p.detach().float()
-        if name.endswith("scale"):
-            assert p.dtype == torch.float32 and torch.all(w == 1)
+        leaf = name.rsplit(".", 1)[-1]
+        if name.endswith("scale") or leaf in ("out_norm", "q_a_norm", "kv_a_norm", "D"):
+            assert p.dtype == torch.float32 and torch.all(w == 1), name
+        elif leaf == "A_log":
+            assert p.dtype == torch.float32
+            torch.testing.assert_close(w, torch.log(torch.linspace(1.0, 16.0, w.numel())))
+        elif leaf == "dt_bias":
+            dt = torch.nn.functional.softplus(w)
+            assert p.dtype == torch.float32
+            assert float(dt.min()) >= 0.001 * (1 - 1e-4) and float(dt.max()) <= 0.1 * (1 + 1e-4)
+        elif leaf in ("conv_x_b", "conv_bc_b"):
+            assert torch.all(w == 0), name
+        elif leaf in ("conv_x", "conv_bc"):
+            assert abs(float(w.std()) - 0.1) < 0.03, name
         elif name == "embed":
             assert abs(float(w.std()) - 0.02) < 0.002
         else:
+            assert p.dtype == (torch.float32 if leaf == "router" else torch.bfloat16), name
             d_in = w.shape[-2]
             assert float(w.abs().max()) <= 2 / d_in**0.5 * (1 + 2**-7), name
             assert abs(float(w.std()) * d_in**0.5 - 0.88) < 0.1, name  # the [-2, 2] normal's spread
@@ -331,6 +338,25 @@ def test_norm_scales_stay_float32_when_the_model_is_cast():
     assert model.dtype == torch.bfloat16
     for m, b in zip(norms, before):
         assert m.scale.dtype == torch.float32 and torch.equal(m.scale, b)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b", "mamba2-780m", "hymba-1.5b"])
+def test_float32_leaves_stay_float32_when_the_model_is_cast(arch):
+    """The router, the SSD's ``A_log``, ``D``, ``dt_bias`` and ``out_norm``
+    and MLA's two norm scales are float32 in the reference whatever the
+    model's type: a cast of the port's model leaves them so, values and
+    all, and casts every other weight."""
+    cfg = dataclasses.replace(TR.get_smoke(arch), dtype="float32")
+    model = lm.init_lm(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    kept = ("scale", "router", "A_log", "D", "dt_bias", "out_norm", "q_a_norm", "kv_a_norm")
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if n.rsplit(".", 1)[-1] in kept}
+    assert any(not n.endswith("scale") for n in before)
+    model.to(torch.bfloat16)
+    for n, p in model.named_parameters():
+        if n in before:
+            assert p.dtype == torch.float32 and torch.equal(p, before[n]), n
+        else:
+            assert p.dtype == torch.bfloat16, n
 
 
 @pytest.mark.parametrize("d_model", [48, 2048])

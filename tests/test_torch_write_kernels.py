@@ -100,6 +100,27 @@ def test_pairwise_ranks_with_a_base_smaller_than_an_appended_run():
     _all_agree(*_stack(runs), n_lanes=2)
 
 
+@pytest.mark.parametrize("n_runs,seed", [(9, 7), (3, 8)])
+def test_stable_argsort_of_packed_keys_newest_first_is_the_merge(n_runs, seed):
+    """The library call the benchmark times beside the kernel: one stable
+    ``torch.argsort`` of the key tuples packed into an int64, rows taken
+    newest run first, then the scatter that inverts it, gives the merge
+    ranks; lanes too wide to pack give no library call."""
+    from repro_torch.bench.write_kernels import packed_newest_first
+
+    rng = np.random.default_rng(seed)
+    lens = [2000] + [int(rng.integers(1, 150)) for _ in range(n_runs - 1)]
+    keys, starts, n = _stack([_sorted_run(rng, m, (5, 3000, 40)) for m in lens])
+    t = torch.from_numpy(keys)
+    packed, rows = packed_newest_first(t, starts, n, 3)
+    pos = torch.empty(n, dtype=torch.int64)
+    pos[rows[torch.argsort(packed, stable=True)]] = torch.arange(n)
+    np.testing.assert_array_equal(pos.numpy(), rref.merge_run_positions_ref(keys, starts, n, n_lanes=3))
+    wide = t.clone()
+    wide[:3, :n] = (1 << 30) - 1
+    assert packed_newest_first(wide, starts, n, 3)[0] is None
+
+
 def test_pairwise_ranks_when_every_key_is_equal():
     """Every row of every run holds the same key tuple: the order is run
     descending, then position, and every insertion point is a run's
