@@ -212,6 +212,24 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 its 3 dense and 1 MoE layer (B 4 x 1024, 16 tokens); each
                 with 2 decode steps under torch.profiler (and the prefill,
                 for MoE); the MoE routing from a second, untimed serve_batch
+  18. lm_train  the LM training path (repro_torch.training, data,
+                checkpoint, launch.train; plain PyTorch, launch counts
+                from 0 and checked to stay 0): the ten SMOKE configs in
+                float32, the loss, gradients and one train step on the card
+                against the CPU from the same weights and batch (loss
+                within 1e-5, gradients within 1e-5 of their largest
+                magnitude, MoE expert choices equal, stepped parameters
+                within twice the learning rate); run_training on
+                starcoder2-3b at full width with the reference's loop
+                defaults (8 x 256 tokens from the HR pipeline, AdamW, remat
+                dots, warmup 20) for 8 steps, no checkpoint written (losses
+                finite, step 1's within 1.5 of ln V), then a warm step of a
+                fresh model (its parameters must move) and one step under
+                torch.profiler; the reference test's tiny config: failure
+                recovery (14 steps, one recovery), resume (6, then 9), and
+                the recovery run's checkpoint restored on the CPU and on
+                the card to its own bytes, rewritten from the CPU to the
+                same files
 Every kernel wrapper's launch count is set to 0 just before phase 3 and
 read after phase 7, just before phase 5 and after it, just before phase 6
 and after it, just before each of phase 8's two column families and after
@@ -248,7 +266,10 @@ group service walls, stage totals, launches, the card), the chaos line
 differences; the overload counters; launches; the card), the lm_serve
 line (card against CPU per SMOKE config, the full-width serving runs and
 decode checks, memory, per family its run under ``families`` and the
-depth cut under ``reduced``, the card), the card's name and power limit, and
+depth cut under ``reduced``, the card), the lm_train line (card against
+CPU per SMOKE config; at full width the walls of init and each step, warm
+tokens/s, losses, gradient norms, peak memory and the profiled step; the
+recovery, resume and checkpoint checks), the card's name and power limit, and
 ``{"ok": true, "device": ...}``. The kernels line's ``ecdf_hist`` row
 carries the token histogram's launches under ``token_hist``.
 
@@ -263,8 +284,10 @@ import gc
 import itertools
 import json
 import math
+import os
 import pathlib
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2662,6 +2685,201 @@ def lm_serve_phase(dev) -> dict:
     return info
 
 
+# -- phase 18: the LM training path -----------------------------------------------------
+
+LM_TRAIN_STEPS = 8
+#: the CPU tests' float32 bounds: loss, and gradients over the largest magnitude
+LM_TRAIN_F32_LOSS, LM_TRAIN_F32_GRAD = 1e-5, 1e-5
+#: the CPU step tests' bound on a stepped parameter where both gradients
+#: exceed 1e-5 of the largest; elsewhere twice the learning rate
+LM_TRAIN_F32_PARAM = 1e-5
+LM_TRAIN_LR = 1e-2
+#: the reference's failure-recovery config (its tests/test_substrate.py)
+LM_TRAIN_TINY = dict(n_layers=1, d_model=32, n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64)
+
+
+def lm_train_batch(cfg, rng, b: int = 2, s: int = 16) -> dict:
+    """``b`` sequences of ``s`` positions: tokens or frame embeddings, and
+    labels (``[b, s, CB]`` for multi-codebook archs)."""
+    batch = lm_smoke_batch(cfg, rng, s)
+    batch = {k: v[:b] for k, v in batch.items()}
+    shape = (b, s, cfg.n_codebooks) if cfg.n_codebooks > 1 else (b, s)
+    batch["labels"] = torch.as_tensor(rng.integers(0, cfg.vocab_size, shape))
+    return batch
+
+
+def lm_train_full(dev) -> dict:
+    """``run_training`` on starcoder2-3b at full width with the reference's
+    ``TrainLoopConfig`` (batch 8 x 256, AdamW, remat ``dots``, warmup 20)
+    for ``LM_TRAIN_STEPS`` steps, checkpoints every ``steps + 1``, into a
+    temporary directory; then one more step of the same model under
+    ``torch.profiler``, after a warm step whose parameters must move."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import TrainLoopConfig, run_training
+    from repro_torch.models.convert import param_leaves
+    from repro_torch.models.lm import init_lm
+    from repro_torch.training.optimizer import init_opt
+    from repro_torch.training.steps import TrainSettings, make_train_step, train_params
+
+    cfg = get_arch(LM_FULL)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        loop = TrainLoopConfig(steps=LM_TRAIN_STEPS, ckpt_dir=d, ckpt_every=LM_TRAIN_STEPS + 1,
+                               log_every=LM_TRAIN_STEPS)
+        out, wall_ms = timed(run_training, cfg, loop, device=dev)
+        check(not os.listdir(d), f"lm_train {LM_FULL}: the timed loop wrote a checkpoint")
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    check(len(losses) == LM_TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"lm_train {LM_FULL}: losses {losses}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(losses[0] - ln_v) < 1.5, f"lm_train {LM_FULL}: step 1 loss {losses[0]}, ln V = {ln_v}")
+    tokens = loop.batch_size * loop.seq_len
+    warm = out["step_s"][1:]
+    info = dict(
+        arch=LM_FULL, dtype=cfg.dtype, param_count=cfg.param_count(), batch=loop.batch_size, seq=loop.seq_len,
+        remat=loop.remat, opt=loop.opt.kind, warmup_steps=loop.opt.warmup_steps, steps=LM_TRAIN_STEPS,
+        init_ms=out["init_s"] * 1e3, step_ms=[s * 1e3 for s in out["step_s"]],
+        data_ms=[s * 1e3 for s in out["data_s"]], warm_tok_s=tokens * len(warm) / sum(warm),
+        losses=losses, grad_norms=out["grad_norms"], run_wall_ms=wall_ms, peak_bytes=peak,
+        data_layouts=out["data_layouts"], avg_rows_scanned=out["avg_rows_scanned"],
+    )
+    del out
+    torch.cuda.empty_cache()
+
+    # one step profiled, on a model of its own, after a warm step
+    settings = TrainSettings(remat=loop.remat, q_chunk=min(512, loop.seq_len), kv_chunk=min(1024, loop.seq_len),
+                             opt=loop.opt)
+    step, _, _ = make_train_step(cfg, None, settings, device=dev)
+    model = init_lm(cfg, generator=torch.Generator(dev).manual_seed(loop.seed), device=dev)
+    opt_state = init_opt(param_leaves(model), loop.opt)
+    rng = np.random.default_rng(4)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (loop.batch_size, loop.seq_len)), device=dev)
+             for k in ("tokens", "labels")}
+    params = train_params(model)
+    before = [p.detach().clone() for p in params]
+    step(model, opt_state, batch)
+    moved = [int((p.detach() != b).sum()) for p, b in zip(params, before)]
+    # bfloat16 weights at lr 3e-4 / 20: an entry moves only where the update
+    # rounds in, but every tensor has such entries
+    still = [i for i, n in enumerate(moved) if n == 0]
+    check(not still, f"lm_train {LM_FULL}: a step left {len(still)} of {len(params)} parameter tensors unchanged")
+    info["warm_step_moved"] = dict(entries=sum(moved), of=sum(p.numel() for p in params),
+                                   matrices=sum(1 for p in params if p.ndim >= 2),
+                                   tensors_moved=sum(1 for n in moved if n), tensors=len(params))
+    info["profiled_step"] = under_profiler(step, model, opt_state, batch)[0]
+    del model, opt_state, batch, params, before
+    torch.cuda.empty_cache()
+    print(f"lm_train {LM_FULL}: steps {[round(s) for s in info['step_ms']]} ms, warm {info['warm_tok_s']:.0f} tok/s, "
+          f"peak {peak / 1e9:.2f} GB, losses {[round(x, 4) for x in losses]}", flush=True)
+    return info
+
+
+def lm_train_recovery(dev) -> dict:
+    """The reference test's failure-recovery and resume runs on the card at
+    its tiny config; the failure run's last checkpoint restored into a
+    model on the CPU and one on the card: both give the checkpoint's
+    bytes back, and the CPU's copy written again gives the same files."""
+    import dataclasses
+    import filecmp
+
+    from repro_torch.checkpoint.manager import (
+        CheckpointManager, flatten, latest_step, restore_checkpoint, save_checkpoint, train_tree,
+    )
+    from repro_torch.configs import get_smoke
+    from repro_torch.ft.failures import FailurePlan
+    from repro_torch.launch.train import TrainLoopConfig, run_training
+    from repro_torch.models.convert import param_leaves
+    from repro_torch.models.lm import init_lm
+    from repro_torch.training.optimizer import init_opt
+
+    cfg = dataclasses.replace(get_smoke(LM_FULL), **LM_TRAIN_TINY)
+    info: dict = {"config": dict(LM_TRAIN_TINY)}
+    with tempfile.TemporaryDirectory() as d:
+        fail_dir, resume_dir = os.path.join(d, "fail"), os.path.join(d, "resume")
+        loop = TrainLoopConfig(steps=14, batch_size=2, seq_len=16, ckpt_dir=fail_dir, ckpt_every=5, log_every=100,
+                               failure_plan=FailurePlan(fail_at_steps=(12,), nodes=(0,)))
+        out, ms = timed(run_training, cfg, loop, device=dev)
+        check(out["steps_run"] == 14 and len(out["recoveries"]) == 1 and math.isfinite(out["final_loss"]),
+              f"lm_train recovery: {out['steps_run']} steps, {len(out['recoveries'])} recoveries")
+        info["recovery"] = dict(steps_run=out["steps_run"], recoveries=len(out["recoveries"]),
+                                recovery_s=out["recoveries"][0]["recovery_s"], final_loss=out["final_loss"],
+                                wall_ms=ms)
+        loop = TrainLoopConfig(steps=6, batch_size=2, seq_len=16, ckpt_dir=resume_dir, ckpt_every=3, log_every=100)
+        run_training(cfg, loop, device=dev)
+        out = run_training(cfg, dataclasses.replace(loop, steps=9), resume=True, device=dev)
+        check(out["steps_run"] == 9 and latest_step(resume_dir) == 9 and len(out["losses"]) == 3,
+              f"lm_train resume: {out['steps_run']} steps")
+        info["resume"] = dict(steps_run=out["steps_run"], latest_step=latest_step(resume_dir))
+
+        step, flat = restore_checkpoint(fail_dir)
+        copies = {}
+        for where in (torch.device("cpu"), dev):
+            model = init_lm(cfg, generator=torch.Generator(where).manual_seed(9), device=where)
+            opt_state = init_opt(param_leaves(model), loop.opt)
+            check(CheckpointManager(fail_dir).restore_latest(model, opt_state) == step, "restore_latest")
+            copies[where.type] = (model, opt_state)
+            got = flatten(train_tree(model, opt_state))
+            check(sorted(got) == sorted(flat), f"lm_train: the state restored on {where.type} has other leaves")
+            for path, leaf in got.items():
+                check(leaf.dtype == flat[path].dtype and np.array_equal(leaf, flat[path]),
+                      f"lm_train: {path} restored on {where.type} differs from the card's checkpoint")
+        again = os.path.join(d, "again")
+        save_checkpoint(again, step, train_tree(*copies["cpu"]), replicas=loop.replication_factor)
+        a, b = os.path.join(fail_dir, f"step_{step:08d}"), os.path.join(again, f"step_{step:08d}")
+        files = sorted(os.listdir(os.path.join(a, "data")))
+        same, diff, err = filecmp.cmpfiles(os.path.join(a, "data"), os.path.join(b, "data"), files, shallow=False)
+        check(not diff and not err and sorted(os.listdir(os.path.join(b, "data"))) == files,
+              f"lm_train: the CPU's copy of step {step} writes other files: {diff} {err}")
+        info["checkpoint"] = dict(step=step, leaves=len(flat), files=len(files), cpu_restore_bytes_equal=True,
+                                  card_restore_bytes_equal=True, cpu_rewrite_files_equal=len(same))
+    return info
+
+
+def lm_train_phase(dev) -> dict:
+    """The port's LM training path (plain PyTorch: no kernel of its own).
+    (a) The ten SMOKE configs in float32, one ``make_train_step`` step on
+    the card against the port's CPU path from the same weights and batch
+    (``train_agreement``): the loss, and the step's loss, within 1e-5, the
+    gradients within 1e-5 of the largest magnitude, the step's gradient
+    norm within 1e-5 of itself, no MoE expert choice different, the
+    stepped parameters within 1e-5 where both gradients exceed 1e-5 of the
+    largest magnitude and within twice the learning rate elsewhere (Adam's
+    first update is the rate times a sign, which flips where a gradient
+    sits at the rounding level). (b) ``lm_train_full``. (c)
+    ``lm_train_recovery``."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import train_agreement
+    from repro_torch.models.lm import init_lm
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.steps import TrainSettings
+
+    info: dict = {"card": card_line(), "allocated_before_bytes": torch.cuda.memory_allocated()}
+    settings = TrainSettings(remat="none", q_chunk=8, kv_chunk=8, opt=OptConfig(lr=LM_TRAIN_LR, warmup_steps=1))
+    smoke = {}
+    for arch in LM_ARCHS:
+        cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+        cpu_model = init_lm(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+        diff, ms = timed(train_agreement, cpu_model, copy.deepcopy(cpu_model).to(dev),
+                         lm_train_batch(cfg, np.random.default_rng(0)), settings)
+        check(diff["loss"] <= LM_TRAIN_F32_LOSS and diff["grad_rel"] <= LM_TRAIN_F32_GRAD
+              and diff["step_loss"] <= LM_TRAIN_F32_LOSS and diff["step_grad_norm_rel"] <= LM_TRAIN_F32_GRAD
+              and diff["params"] <= LM_TRAIN_F32_PARAM and diff["params_noise"] <= 2 * LM_TRAIN_LR * (1 + 1e-6)
+              and diff.get("expert_choices_differ", 0) == 0, f"lm_train {arch}: the card differs from the CPU: {diff}")
+        smoke[arch] = dict(diff, wall_ms=ms)
+    info["smoke_vs_cpu"] = smoke
+    info["bounds"] = dict(loss=LM_TRAIN_F32_LOSS, grad_rel=LM_TRAIN_F32_GRAD, step_grad_norm_rel=LM_TRAIN_F32_GRAD,
+                          params=LM_TRAIN_F32_PARAM, params_noise=2 * LM_TRAIN_LR)
+    info["full"] = lm_train_full(dev)
+    info["recovery"] = lm_train_recovery(dev)
+    info["reduced"] = {LM_FULL: "none: 30 layers at published widths; 8 steps, no checkpoint at full width"}
+    return info
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=5.0, help="TPC-H scale factor (1.5 M rows each)")
@@ -2962,7 +3180,15 @@ def run(args, dev) -> None:
     check(not any(lm_launches.values()), f"the LM serving path launched engine kernels: {lm_launches}")
     lm_serve["phase_ms"] = phases.ms["lm_serve"]
 
-    # 18. report
+    # 18. the LM training path, after the serving models are freed; it too
+    # launches none of the engine's kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_train, train_launches = phases.run("lm_train", own_counts, lm_train_phase, dev)
+    check(not any(train_launches.values()), f"the LM training path launched engine kernels: {train_launches}")
+    lm_train["phase_ms"] = phases.ms["lm_train"]
+
+    # 19. report
     small_tile = report.pop("small_tile")
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2988,6 +3214,7 @@ def run(args, dev) -> None:
     print(json.dumps({"frontdoor": frontdoor}))
     print(json.dumps({"chaos": chaos}))
     print(json.dumps({"lm_serve": lm_serve}))
+    print(json.dumps({"lm_train": lm_train}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -8,7 +8,10 @@
            RMS-normed, then averaged, + MLP
 
 A block's prefill returns its cache entries in the reference's order
-(``k, v`` or ``ckv, krope``, then ``conv_x, conv_bc, state``). Its decode
+(``k, v`` or ``ckv, krope``, then ``conv_x, conv_bc, state``); its
+``forward_train`` returns the auxiliary loss instead (the MoE load-balance
+statistic times ``moe_aux_alpha``), which the reference's
+``block_forward`` adds up. Its decode
 writes every entry in place: the attention entries at slot ``pos``, then
 attends over the whole cache (the reference's ``_attend_*_sharded`` with
 ``ctx=None``); the SSD entries whole.
@@ -85,6 +88,19 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *, window: int = 0,
                 q_chunk: int = 512, kv_chunk: int = 1024) -> tuple[torch.Tensor, tuple]:
         """Prefill: (x_out, the layer's cache entries)."""
+        x, entries, _ = self._full(x, positions, window, q_chunk, kv_chunk, collect=True)
+        return x, entries
+
+    def forward_train(self, x: torch.Tensor, positions: torch.Tensor, *, window: int = 0,
+                      q_chunk: int = 512, kv_chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+        """Training: (x_out, aux), aux a float32 scalar: the MoE load-balance
+        statistic times ``cfg.moe_aux_alpha``, 0 for the other kinds."""
+        x, _, aux = self._full(x, positions, window, q_chunk, kv_chunk, collect=False)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
+
+    def _full(self, x, positions, window: int, q_chunk: int, kv_chunk: int, *, collect: bool):
+        """The reference's ``block_forward``: (x_out, cache entries, aux);
+        the entries only when ``collect``."""
         cfg, pd = self.cfg, self.pd
         xn = self.ln1(x, cfg.norm_eps)
         entries: tuple = ()
@@ -94,9 +110,13 @@ class Block(nn.Module):
             attn_out, kv = fwd(self.attn, xn, positions, cfg, pd, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
             entries += kv
         if self.ssm is not None:
-            ssm_out, st = ssm_mod.ssm_forward(self.ssm, xn, cfg, return_state=True)
-            entries += (st["conv_x"], st["conv_bc"], st["state"])
-        return self._ffn(self._mix(x, attn_out, ssm_out)), entries
+            if collect:
+                ssm_out, st = ssm_mod.ssm_forward(self.ssm, xn, cfg, return_state=True)
+                entries += (st["conv_x"], st["conv_bc"], st["state"])
+            else:
+                ssm_out = ssm_mod.ssm_forward(self.ssm, xn, cfg)
+        x, aux = self._ffn(self._mix(x, attn_out, ssm_out))
+        return x, entries, aux
 
     def decode(self, x: torch.Tensor, cache: tuple, pos: int, *, window: int = 0) -> torch.Tensor:
         """One token x [B, 1, D]; ``cache`` holds this layer's entries in the
@@ -113,7 +133,7 @@ class Block(nn.Module):
             ssm_out, new = ssm_mod.ssm_decode(self.ssm, xn, dict(zip(names, entries)), cfg)
             for name, entry in zip(names, entries):
                 entry.copy_(new[name])
-        return self._ffn(self._mix(x, attn_out, ssm_out))
+        return self._ffn(self._mix(x, attn_out, ssm_out))[0]
 
     def _gqa_decode(self, xn, k_cache, v_cache, pos: int, window: int) -> torch.Tensor:
         """Writes slot ``pos`` of the caches ([B, S_alloc, Hkv, Dh]), then attends."""
@@ -148,23 +168,26 @@ class Block(nn.Module):
             return x + 0.5 * (self.norm_attn(attn_out, eps) + self.norm_ssm(ssm_out, eps))
         return x + (ssm_out if self.kind == "ssm" else attn_out)
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """(x + the feed-forward parts, the auxiliary loss; None but for MoE)."""
+        aux = None
         if self.ln2 is None:
-            return x
+            return x, aux
         cfg = self.cfg
         xn2 = self.ln2(x, cfg.norm_eps)
         parts = []
         if self.shared is not None:
             parts.append(mlp_apply(self.shared, xn2, cfg.act, cfg.gated_mlp))
         if self.moe is not None:
-            y, _ = moe_mod.moe_forward(self.moe, xn2, cfg)
+            y, a = moe_mod.moe_forward(self.moe, xn2, cfg)
             parts.append(y.to(x.dtype))
+            aux = cfg.moe_aux_alpha * a
         if self.mlp is not None:
             parts.append(mlp_apply(self.mlp, xn2, cfg.act, cfg.gated_mlp))
         h = parts[0]
         for part in parts[1:]:
             h = h + part
-        return x + h
+        return x + h, aux
 
 
 def init_block(cfg: ArchConfig, pd: PaddedDims, kind: str, d_ff: int, *, generator, device, dtype) -> Block:

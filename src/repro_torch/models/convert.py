@@ -1,4 +1,5 @@
-"""Carry the reference's weights into the port.
+"""Carry the reference's weights and optimizer state into the port, and
+back.
 
 ``lm_from_reference`` takes the pytree the reference's ``init_lm`` makes
 (nested dicts, every leaf a numpy array; bfloat16 leaves as numpy's
@@ -13,6 +14,15 @@ Every leaf keeps its type: norm scales, the router and the SSD's
 ``A_log``, ``D``, ``dt_bias`` and ``out_norm`` are float32 in the
 reference and stay so. The MTP head (an unstacked block) comes across
 too.
+
+``lm_to_reference`` is the inverse: the model's weights as the
+reference's pytree, each stack's layers stacked on axis 0 again;
+``opt_to_reference`` and ``opt_from_reference`` carry the optimizer
+state (``repro_torch.training.optimizer``, kept in the reference's layout
+already) between tensors and numpy. Without ``ml_dtypes`` the port holds
+a bfloat16 array in numpy as its bits, a ``uint16`` array (as the
+reference's checkpoints store it); the loaders take those and numpy's
+``bfloat16`` alike, bit for bit.
 """
 
 from __future__ import annotations
@@ -24,20 +34,123 @@ from repro_torch.parallel.padding import padded_dims
 from .attention import GQA, MLA
 from .blocks import MLP, Block, RMSNorm
 from .config import ArchConfig
-from .lm import LM, MTP, stacks_for, torch_dtype
+from .lm import LM, MTP, stacks_for
 from .moe import MoE
 from .ssm import SSM
 
-__all__ = ["block_from_reference", "lm_from_reference"]
+__all__ = [
+    "block_from_reference",
+    "lm_from_reference",
+    "lm_to_reference",
+    "load_lm_from_reference",
+    "param_leaves",
+    "is_stacked",
+    "opt_to_reference",
+    "opt_from_reference",
+    "to_numpy",
+    "nest",
+    "tree_get",
+]
+
+#: numpy dtype names that hold bfloat16: numpy's extension type and its bits
+_BF16_NAMES = ("bfloat16", "uint16")
 
 
 def _tensor(a, device) -> torch.Tensor:
+    """A copy of ``a`` (numpy, or a tensor) on ``device``; a ``uint16`` or
+    numpy ``bfloat16`` array becomes bfloat16 with the same bits."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device, copy=True)
     a = np.asarray(a)
-    dtype = torch_dtype(a.dtype.name)
-    # torch reads no numpy bfloat16: widen it exactly to float32 and narrow
-    # it back; torch.tensor copies, so the model owns its weights
-    host = a.astype(np.float32) if dtype == torch.bfloat16 else a
-    return torch.tensor(host, device=device).to(dtype)
+    if a.dtype.name in _BF16_NAMES:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``; bfloat16 as its bits, a ``uint16`` array."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def nest(flat: dict) -> dict:
+    """``{(k1, k2, ...): leaf}`` → nested dicts."""
+    out: dict = {}
+    for path, leaf in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def tree_get(tree: dict, path: tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def param_leaves(model: LM) -> list[tuple[tuple[str, ...], list[torch.nn.Parameter]]]:
+    """The reference's parameter leaves in its tree order (paths sorted, as
+    ``jax.tree.leaves`` flattens dicts): (path, tensors). A stack leaf
+    (``is_stacked``) holds the layers' tensors in order, which the
+    reference stacks on axis 0; any other leaf its one tensor."""
+    leaves: dict = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[-1] == "scale":  # an RMSNorm's scale is the reference's leaf itself
+            parts = parts[:-1]
+        if parts[0] == "stacks":  # stacks.<name>.<layer>.<...>, layers in order
+            leaves.setdefault((f"stack_{parts[1]}", *parts[3:]), []).append(p)
+        else:
+            leaves[tuple(parts)] = [p]
+    return sorted(leaves.items())
+
+
+def is_stacked(path: tuple[str, ...]) -> bool:
+    """Whether the reference stacks the leaf at ``path`` over layers."""
+    return path[0].startswith("stack_")
+
+
+def lm_to_reference(model: LM) -> dict:
+    """The model's weights as the reference's ``init_lm`` pytree of host
+    numpy arrays (bfloat16 as ``uint16`` bits)."""
+    return nest({
+        path: np.stack([to_numpy(p) for p in ps]) if is_stacked(path) else to_numpy(ps[0])
+        for path, ps in param_leaves(model)
+    })
+
+
+@torch.no_grad()
+def load_lm_from_reference(model: LM, params: dict) -> None:
+    """Copy the reference's pytree (numpy or CPU tensors) into the model's
+    live parameters; every leaf must have the shape and type the model's
+    has."""
+    for path, ps in param_leaves(model):
+        src = _tensor(tree_get(params, path), ps[0].device)
+        for p, a in zip(ps, src if is_stacked(path) else [src], strict=True):
+            if a.shape != p.shape or a.dtype != p.dtype:
+                raise ValueError(f"{'/'.join(path)}: {tuple(a.shape)} {a.dtype}, the model holds "
+                                 f"{tuple(p.shape)} {p.dtype}")
+            p.copy_(a)
+
+
+def _map(tree, fn):
+    return {k: _map(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def opt_to_reference(opt_state: dict) -> dict:
+    """The optimizer state as the reference's ``{"step": int32 scalar,
+    "state": {...}}`` of host numpy arrays."""
+    return {"step": np.asarray(opt_state["step"], np.int32), "state": _map(opt_state["state"], to_numpy)}
+
+
+def opt_from_reference(tree: dict, *, device) -> dict:
+    """The reference's optimizer state (numpy or CPU tensors) → the port's
+    on ``device``."""
+    return {"step": int(np.asarray(tree["step"])), "state": _map(tree["state"], lambda a: _tensor(a, device))}
 
 
 def _layer(tree, i: int):

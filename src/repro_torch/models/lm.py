@@ -1,5 +1,5 @@
-"""Decoder LM of the port, serving half: the counterpart of
-``repro.models.lm``'s ``init_lm``, ``init_cache``, ``prefill`` and
+"""Decoder LM of the port: the counterpart of ``repro.models.lm``'s
+``init_lm``, ``forward_train``, ``init_cache``, ``prefill`` and
 ``decode_step`` for every registered architecture: the "attn" stacks
 (GQA or MLA), DeepSeek-V3's dense prefix and MoE stacks, qwen2-moe's MoE
 stack, Mamba-2's SSD stack and Hymba's hybrid stack with its per-layer
@@ -11,17 +11,26 @@ reference stacks each stack's layers on a leading axis and scans them,
 cache is the reference's dict of stacked tensors ``"<stack>/<entry>"``
 (``k``/``v`` ``[L, B, S_alloc, Hkv, Dh]``, ``ckv``/``krope`` ``[L, B,
 S_alloc, r]``, ``conv_x``/``conv_bc`` ``[L, B, K-1, C]`` and the float32
-``state`` ``[L, B, H, P, N]``); ``decode_step`` writes it in place. The
-MTP head's weights are built and carried, but only training (ROADMAP
-item 7e) reads them.
+``state`` ``[L, B, H, P, N]``); ``decode_step`` writes it in place.
+
+``forward_train`` is the training loss: cross-entropy over the labels,
+the MoE auxiliary loss and, for DeepSeek-V3, the multi-token-prediction
+head's loss at weight 0.3. Its ``remat`` wraps each block of the stacks
+in ``torch.utils.checkpoint``: ``full`` keeps only the block's input,
+``dots`` also the outputs of its matrix products without batch
+dimensions (``aten.mm``, ``aten.addmm``: the projections, the MLP and
+the router; not the attention scores or the expert products), as the
+reference's ``dots_with_no_batch_dims_saveable`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.parallel.padding import PaddedDims, padded_dims
 from . import blocks as blk
@@ -36,6 +45,8 @@ __all__ = [
     "stacks_for",
     "init_lm",
     "init_cache",
+    "forward_train",
+    "REMATS",
     "prefill",
     "decode_step",
     "torch_dtype",
@@ -84,7 +95,7 @@ def torch_dtype(name: str | torch.dtype) -> torch.dtype:
 
 class MTP(nn.Module):
     """DeepSeek-V3's multi-token-prediction head: ``proj`` ``[2D, D]``, an
-    "attn" ``block`` and ``norm``. Serving never reads it."""
+    "attn" ``block`` and ``norm``. Only ``forward_train`` reads it."""
 
     def __init__(self, proj: torch.Tensor, block: blk.Block, norm: blk.RMSNorm):
         super().__init__()
@@ -181,6 +192,82 @@ def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
         pad = torch.arange(pd.vocab_size, device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, NEG)
     return logits
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean cross-entropy over the labels >= 0, in float32: (loss, the count
+    of those labels, at least 1). logits [..., V], labels [...]."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    total = torch.clamp(valid.sum(), min=1.0)
+    return torch.sum((lse - ll) * valid) / total, total
+
+
+# ---------------------------------------------------------------- train --------
+
+
+REMATS = ("none", "dots", "full")
+#: the products ``dots`` keeps: those without batch dimensions
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_block(block: blk.Block, x, positions, window: int, q_chunk: int, kv_chunk: int, remat: str):
+    """One block's ``forward_train`` under the ``remat`` policy."""
+    fn = functools.partial(block.forward_train, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if remat == "none":
+        return fn(x, positions)
+    kw = {} if remat == "full" else dict(context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                                       _save_products))
+    return checkpoint(fn, x, positions, use_reentrant=False, **kw)
+
+
+def forward_train(model: LM, batch: dict, *, remat: str = "dots", q_chunk: int = 512,
+                  kv_chunk: int = 1024) -> tuple[torch.Tensor, dict]:
+    """``{"tokens" | "embeds", "labels"}`` → (loss, metrics): the mean
+    cross-entropy over labels >= 0 (labels ``[B, S]``, or ``[B, S, CB]``
+    for multi-codebook archs) plus the MoE auxiliary loss, plus 0.3 times
+    the MTP head's loss on the labels one position on when the model has
+    one. ``metrics`` holds ``ce``, ``aux``, ``tokens`` (the count of
+    labels) and, with MTP, ``mtp``. The pipeline-parallel schedule of
+    the reference's ``pipeline_micro`` comes with the port's
+    ``DeviceMesh`` (ROADMAP item 7f)."""
+    if remat not in REMATS:
+        raise ValueError(f"remat {remat!r}; known: {REMATS}")
+    cfg = model.cfg
+    x = _embed_in(model, batch)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    off = 0
+    for spec in stacks_for(cfg):
+        windows = _windows_for(cfg, spec, off)
+        aux_stack = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, block in enumerate(model.stacks[spec.name]):
+            window = windows if isinstance(windows, int) else windows[i]
+            x, aux = _run_block(block, x, positions, window, q_chunk, kv_chunk, remat)
+            aux_stack = aux_stack + aux
+        aux_total = aux_total + aux_stack
+        off += spec.n_layers
+
+    h = model.final_norm(x, cfg.norm_eps)
+    loss, n_tok = _xent(_logits(model, h), batch["labels"])
+    metrics = {"ce": loss, "aux": aux_total, "tokens": n_tok}
+    if model.mtp is not None:
+        # predict token t+2: h_t joined with the embedding of token t+1
+        mtp = model.mtp
+        comb = torch.cat([h[:, :-1], _embed_in(model, batch)[:, 1:]], dim=-1)
+        hm, _ = mtp.block.forward_train(dense(comb, mtp.proj), positions[:, :-1], window=0, q_chunk=q_chunk,
+                                        kv_chunk=kv_chunk)
+        mtp_loss, _ = _xent(_logits(model, mtp.norm(hm, cfg.norm_eps)), batch["labels"][:, 1:])
+        metrics["mtp"] = mtp_loss
+        loss = loss + 0.3 * mtp_loss
+    return loss + aux_total, metrics
 
 
 # ---------------------------------------------------------------- cache --------

@@ -82,16 +82,35 @@ def route(cfg: ArchConfig, logits: torch.Tensor, e_valid: int):
     return idx, gates.float(), probs
 
 
+class _ExpertMatmul(torch.autograd.Function):
+    """The float32-out product of two tensors in a narrower type. Forward:
+    cuBLAS writes float32 on the card; on the CPU the inputs widen first,
+    which is exact (a product of two bfloat16 values fits a float32).
+    Backward, on either device: the float32 cotangent against the other
+    input widened, cast back to the input's type, as the transpose of the
+    reference's ``preferred_element_type=float32`` product is."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.device.type == "cuda":
+            return torch.bmm(x, w, out_dtype=torch.float32)
+        return torch.bmm(x.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = torch.bmm(g, w.float().transpose(1, 2)).to(x.dtype) if ctx.needs_input_grad[0] else None
+        gw = torch.bmm(x.float().transpose(1, 2), g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``[E, C, a] @ [E, a, b]`` → float32 ``[E, C, b]`` from inputs in the
-    model's type, accumulated in float32: cuBLAS writes float32 on the card;
-    on the CPU the inputs widen first, which is exact (a product of two
-    bfloat16 values fits a float32)."""
+    model's type, accumulated in float32 (``_ExpertMatmul``)."""
     if x.dtype == torch.float32:
         return torch.bmm(x, w)
-    if x.device.type == "cuda":
-        return torch.bmm(x, w, out_dtype=torch.float32)
-    return torch.bmm(x.float(), w.float())
+    return _ExpertMatmul.apply(x, w)
 
 
 def moe_forward(p: MoE, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:

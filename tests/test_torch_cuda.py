@@ -15,7 +15,11 @@ contract's in-block order written out in PyTorch bit for bit. The LM
 serving path (plain PyTorch, no kernel of its own) must give the CPU's
 float32 logits within 1e-4 and caches within 1e-5 on the card, and its
 decode must agree with a teacher-forced prefill within the reference's
-5e-3.
+5e-3. Its training path must give the CPU's float32 loss within 1e-5 and
+gradients within 1e-5 of their largest magnitude, the same expert
+choices, and the bfloat16 expert products' gradients within a bfloat16
+rounding; a checkpoint written on the card restores on the CPU bit for
+bit.
 """
 
 import copy
@@ -1210,3 +1214,76 @@ def test_lm_serving_on_the_card_matches_the_cpu(cuda_device, arch):
         card_model = init_lm(cfg, generator=torch.Generator().manual_seed(3), device="cpu").to(cuda_device)
     on_card = {k: v.to(cuda_device) for k, v in batch.items()}
     assert decode_forward_error(card_model, on_card, device=cuda_device, q_chunk=4, kv_chunk=4) < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import train_agreement
+    from repro_torch.models.lm import init_lm
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.steps import TrainSettings
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    cpu_model = init_lm(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    rng = np.random.default_rng(0)
+    if cfg.input_mode == "tokens":
+        batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 16)))}
+    else:
+        batch = {"embeds": torch.as_tensor(rng.normal(0, 1, (2, 16, cfg.d_model)).astype(np.float32))}
+    shape = (2, 16, cfg.n_codebooks) if cfg.n_codebooks > 1 else (2, 16)
+    batch["labels"] = torch.as_tensor(rng.integers(0, cfg.vocab_size, shape))
+    settings = TrainSettings(remat="dots", q_chunk=8, kv_chunk=8, opt=OptConfig(lr=1e-2, warmup_steps=1))
+    diff = train_agreement(cpu_model, copy.deepcopy(cpu_model).to(cuda_device), batch, settings)
+    assert diff["loss"] <= 1e-5 and diff["grad_rel"] <= 1e-5 and diff["step_loss"] <= 1e-5, diff
+    assert diff["step_grad_norm_rel"] <= 1e-5, diff
+    assert diff.get("expert_choices_differ", 0) == 0, diff
+    # the CPU step tests' rule: 1e-5 where both gradients exceed 1e-5 of the
+    # largest; elsewhere Adam's first update, the rate times a sign, may flip
+    assert diff["params"] <= 1e-5, diff
+    assert diff["params_noise"] <= 2 * 1e-2 * (1 + 1e-6), diff
+
+
+@pytest.mark.cuda
+def test_expert_products_backward_on_the_card_matches_the_cpu(cuda_device):
+    from repro_torch.models.moe import expert_matmul
+
+    g = torch.Generator().manual_seed(0)
+    x, w, r = (torch.randn(shape, generator=g) for shape in ((4, 24, 64), (4, 64, 96), (4, 24, 96)))
+    outs = []
+    for dev in (torch.device("cpu"), cuda_device):
+        xd, wd = (t.to(dev, torch.bfloat16).requires_grad_() for t in (x, w))
+        y = expert_matmul(xd, wd)
+        assert y.dtype == torch.float32
+        (y * r.to(dev)).sum().backward()
+        outs.append([t.detach().float().cpu() for t in (y, xd.grad, wd.grad)])
+    (y_cpu, gx_cpu, gw_cpu), (y_card, gx_card, gw_card) = outs
+    assert torch.allclose(y_card, y_cpu, rtol=1e-5, atol=1e-5)
+    for a, b in ((gx_card, gx_cpu), (gw_card, gw_cpu)):  # float32 products rounded once to bfloat16
+        assert ((a - b).abs() <= 2.0**-7 * b.abs() + 1e-6).all()
+
+
+@pytest.mark.cuda
+def test_a_checkpoint_written_on_the_card_restores_on_the_cpu(cuda_device, tmp_path):
+    from repro_torch.checkpoint.manager import CheckpointManager, flatten, restore_checkpoint, train_tree
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import TrainLoopConfig, run_training
+    from repro_torch.models.convert import param_leaves
+    from repro_torch.models.lm import init_lm
+    from repro_torch.training.optimizer import init_opt
+
+    cfg = dataclasses.replace(get_smoke("deepseek-v3-671b"), n_layers=2)
+    loop = TrainLoopConfig(steps=4, batch_size=2, seq_len=16, ckpt_dir=str(tmp_path), ckpt_every=4, log_every=100)
+    out = run_training(cfg, loop, device=cuda_device)
+    assert out["steps_run"] == 4 and all(np.isfinite(out["losses"]))
+    step, flat = restore_checkpoint(str(tmp_path))
+    assert step == 4 and flat["params/embed"].dtype == np.uint16  # bfloat16, as its bits
+    for dev in (torch.device("cpu"), cuda_device):
+        model = init_lm(cfg, generator=torch.Generator(dev).manual_seed(9), device=dev)
+        opt_state = init_opt(param_leaves(model), loop.opt)
+        assert CheckpointManager(str(tmp_path)).restore_latest(model, opt_state) == 4
+        got = flatten(train_tree(model, opt_state))
+        assert sorted(got) == sorted(flat)
+        for path, want in flat.items():
+            assert got[path].dtype == want.dtype and np.array_equal(got[path], want), (dev, path)
