@@ -230,6 +230,22 @@ Phases, each asserting (a failure exits non-zero and prints no result):
                 the recovery run's checkpoint restored on the CPU and on
                 the card to its own bytes, rewritten from the CPU to the
                 same files
+  19. mesh      the mesh placements (repro_torch.parallel.sharding, the
+                model's sequence-sharded decode and MoE regions; plain
+                PyTorch, launch counts from 0 and checked to stay 0) on a
+                one-rank ("data", "model") = (1, 1) DeviceMesh over NCCL,
+                each run held to its twin without a mesh and timed beside
+                it: one make_train_step step of starcoder2-3b at full width
+                (bfloat16, 8 x 256, AdamW, remat dots) from the same weights
+                and batch (loss within 1e-5 relative, stepped parameters
+                within 1e-5 where both gradients exceed 1e-5 of the largest
+                and within twice the learning rate elsewhere, gradient norm
+                within 1e-5 relative), then a warm step of each; serve_batch
+                of starcoder2-3b (8 x 1024, 32 tokens) with serve_sharding
+                "fsdp" and "tp", and of qwen2-moe-a2.7b at published width
+                (8 x 256, 16 tokens) with "tp", the global-EP region: equal
+                tokens, no expert choice different; walls, decode tokens/s
+                and peak memory of every run
 Every kernel wrapper's launch count is set to 0 just before phase 3 and
 read after phase 7, just before phase 5 and after it, just before phase 6
 and after it, just before each of phase 8's two column families and after
@@ -269,7 +285,10 @@ decode checks, memory, per family its run under ``families`` and the
 depth cut under ``reduced``, the card), the lm_train line (card against
 CPU per SMOKE config; at full width the walls of init and each step, warm
 tokens/s, losses, gradient norms, peak memory and the profiled step; the
-recovery, resume and checkpoint checks), the card's name and power limit, and
+recovery, resume and checkpoint checks), the mesh line (the mesh, the
+train step's gaps, walls and peak memory with and without the mesh, each
+serving run's walls, decode tokens/s and peak memory), the card's name
+and power limit, and
 ``{"ok": true, "device": ...}``. The kernels line's ``ecdf_hist`` row
 carries the token histogram's launches under ``token_hist``.
 
@@ -2880,6 +2899,173 @@ def lm_train_phase(dev) -> dict:
     return info
 
 
+#: the mesh phase's runs: starcoder2-3b decode (batch, prompt, tokens), as
+#: lm_serve's; qwen2-moe-a2.7b decode, a shorter prompt; the train step's batch
+MESH_SERVE = (8, 1024, 32)
+MESH_MOE = (8, 256, 16)
+MESH_TRAIN = (8, 256)
+MESH_F32_PARAM, MESH_GRAD_NORM_REL = 1e-5, 1e-5
+
+
+def mesh_train_check(ctx, dev) -> dict:
+    """One ``make_train_step`` step of starcoder2-3b at full width (bfloat16,
+    ``MESH_TRAIN`` tokens, AdamW, remat ``dots``) without a mesh and through
+    ``ctx``, from the same weights and batch: the loss, the gradients over
+    their largest magnitude, the stepped parameters where both gradients
+    exceed 1e-5 of the largest (``params``, bound ``MESH_F32_PARAM``) and
+    elsewhere, and the gradient norm relative (bound ``MESH_GRAD_NORM_REL``);
+    then a warm step of each, timed, and each run's peak memory. The
+    first run's gradients and stepped parameters wait on the host."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import TrainLoopConfig
+    from repro_torch.models.convert import full, param_leaves
+    from repro_torch.models.lm import init_lm
+    from repro_torch.parallel.sharding import place
+    from repro_torch.training.optimizer import init_opt, schedule
+    from repro_torch.training.steps import (
+        TrainSettings, batch_specs, loss_and_grads, make_train_step, place_train_state, train_ctx, train_params,
+    )
+
+    cfg = get_arch(LM_FULL)
+    loop = TrainLoopConfig()
+    B, S = MESH_TRAIN
+    settings = TrainSettings(remat=loop.remat, q_chunk=min(512, S), kv_chunk=min(1024, S), opt=loop.opt)
+    rng = np.random.default_rng(5)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)), device=dev) for k in ("tokens", "labels")}
+    info: dict = dict(arch=LM_FULL, dtype=cfg.dtype, batch=B, seq=S, remat=settings.remat, opt=settings.opt.kind)
+    ref = {}
+    for name, c in (("one", None), ("mesh", ctx)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = init_lm(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+        tc = train_ctx(cfg, c, settings)
+        placed = batch
+        if c is not None:
+            place_train_state(cfg, tc, settings, model)
+            placed = {k: place(v, tc, batch_specs(cfg, tc)[k]) for k, v in batch.items()}
+        loss, _, grads = loss_and_grads(model, placed, settings, tc)
+        grads = [full(g) for g in grads]
+        run: dict = dict(loss=float(loss))
+        if name == "one":
+            ref["grads"] = [g.to("cpu") for g in grads]
+            ref["g_max"] = g_max = max(float(g.abs().max()) for g in grads)
+        else:
+            g_max, signal, gap = ref["g_max"], [], 0.0
+            for g, r in zip(grads, ref["grads"]):
+                r = r.to(dev)
+                gap = max(gap, float((g.float() - r.float()).abs().max()))
+                signal.append((torch.minimum(g.abs(), r.abs()).float() > 1e-5 * g_max).cpu())
+            run["grad_rel"] = gap / g_max
+        del grads
+        step, _, _ = make_train_step(cfg, c, settings, device=dev)
+        opt_state = init_opt(param_leaves(model), settings.opt)
+        (_, _, m), run["step_ms"] = timed(step, model, opt_state, batch)
+        run.update(step_loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+        stepped = [full(p.detach()) for p in train_params(model)]
+        if name == "one":
+            ref["params"] = [p.to("cpu") for p in stepped]
+        else:
+            params = noise = 0.0
+            for p, r, sig in zip(stepped, ref["params"], signal):
+                d = (p.float() - r.to(dev).float()).abs()
+                sig = sig.to(dev)
+                params = max(params, float(d[sig].max()) if bool(sig.any()) else 0.0)
+                noise = max(noise, float(d[~sig].max()) if bool((~sig).any()) else 0.0)
+            run.update(params=params, params_noise=noise)
+        del stepped
+        (_, _, m), run["warm_step_ms"] = timed(step, model, opt_state, batch)
+        run["peak_bytes"] = torch.cuda.max_memory_allocated()
+        info[name] = run
+        del model, opt_state, step
+    one, mesh = info["one"], info["mesh"]
+    info["step_grad_norm_rel"] = abs(one["grad_norm"] - mesh["grad_norm"]) / one["grad_norm"]
+    info["lr"] = lr = schedule(settings.opt, 1)
+    check(abs(one["loss"] - mesh["loss"]) <= 1e-5 * abs(one["loss"]) and mesh["params"] <= MESH_F32_PARAM
+          and mesh["params_noise"] <= 2 * lr * (1 + 1e-6) and info["step_grad_norm_rel"] <= MESH_GRAD_NORM_REL,
+          f"mesh train: the (1, 1) mesh's step differs from one device's: {info}")
+    ref.clear()
+    torch.cuda.empty_cache()
+    print(f"mesh train {LM_FULL}: warm step {one['warm_step_ms']:.0f} ms without a mesh, "
+          f"{mesh['warm_step_ms']:.0f} ms on it; params gap {mesh['params']:.2e}", flush=True)
+    return info
+
+
+def mesh_serve_check(arch: str, ctx, serve_sharding: str, shape, dev) -> dict:
+    """``serve_batch`` of ``arch`` at its published width in bfloat16 without
+    a mesh and through ``ctx`` with ``serve_sharding``, from the same
+    weights (a model each, drawn alike) and prompts: the tokens equal, for
+    MoE no expert choice different (both runs under ``route_log``); the
+    walls, decode tokens/s and peak memory of each."""
+    import contextlib
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models.lm import init_lm
+    from repro_torch.models.moe import route_log
+
+    B, P, G = shape
+    cfg = get_arch(arch)
+    info: dict = dict(arch=arch, dtype=cfg.dtype, serve_sharding=serve_sharding, batch=B, prompt=P, gen=G)
+    runs, routes = {}, {}
+    for name, c in (("one", None), ("mesh", ctx)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = init_lm(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+        with route_log(model) if cfg.is_moe else contextlib.nullcontext() as log:
+            out = serve_batch(cfg, batch_size=B, prompt_len=P, gen_tokens=G, seed=0, device=dev, model=model, ctx=c,
+                              serve_sharding=serve_sharding)
+        if log is not None:
+            routes[name] = [r["choices"].cpu() for r in log.calls]
+        runs[name] = out["tokens"]
+        info[name] = dict(prefill_ms=out["prefill_s"] * 1e3, decode_ms=out["decode_s"] * 1e3,
+                          decode_tok_s=out["decode_tok_s"], peak_bytes=torch.cuda.max_memory_allocated(),
+                          param_bytes=out["param_bytes"], cache_bytes=out["cache_bytes"])
+        check(bool(torch.isfinite(out["logits"][..., : cfg.vocab_size]).all()), f"mesh {arch}: logits not finite")
+        del model, out
+    info["tokens_equal"] = bool(np.array_equal(runs["one"], runs["mesh"]))
+    check(info["tokens_equal"], f"mesh {arch} {serve_sharding}: the mesh's tokens differ from one device's")
+    if routes:
+        check([r.shape for r in routes["one"]] == [r.shape for r in routes["mesh"]], f"mesh {arch}: routing calls")
+        info["expert_choices_differ"] = sum(int((a != b).sum()) for a, b in zip(routes["one"], routes["mesh"]))
+        check(info["expert_choices_differ"] == 0, f"mesh {arch}: {info['expert_choices_differ']} expert choices differ")
+    torch.cuda.empty_cache()
+    print(f"mesh {arch} {serve_sharding}: decode {info['one']['decode_tok_s']:.1f} tok/s without a mesh, "
+          f"{info['mesh']['decode_tok_s']:.1f} on it", flush=True)
+    return info
+
+
+def mesh_phase(dev) -> dict:
+    """The port's mesh placements (repro_torch.parallel.sharding and the
+    model's regions; plain PyTorch, no kernel of its own) on a one-rank
+    ("data", "model") = (1, 1) DeviceMesh over NCCL: ``mesh_train_check``,
+    then ``mesh_serve_check`` on starcoder2-3b with ``serve_sharding``
+    "fsdp" and "tp" and on qwen2-moe-a2.7b with "tp" (global EP: 60
+    experts divide data × model). The process group is made here, through
+    a ``FileStore`` in a temporary directory, and destroyed after."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import GROUP_TIMEOUT_S, init_local_group
+    from repro_torch.models.moe import ep_over_data_ok
+    from repro_torch.configs import get_arch
+    from repro_torch.parallel.sharding import make_ctx
+
+    info: dict = {"card": card_line(), "mesh": {"shape": [1, 1], "axes": ["data", "model"], "backend": "nccl",
+                                                "group_timeout_s": GROUP_TIMEOUT_S}}
+    with tempfile.TemporaryDirectory() as d:
+        init_local_group(0, 1, os.path.join(d, "store"), "nccl")
+        try:
+            ctx = make_ctx(init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model")))
+            check(ep_over_data_ok(get_arch("qwen2-moe-a2.7b"), ctx), "qwen2-moe on (1, 1): global EP must apply")
+            info["train"] = mesh_train_check(ctx, dev)
+            info["serve"] = [mesh_serve_check(LM_FULL, ctx, mode, MESH_SERVE, dev) for mode in ("fsdp", "tp")]
+            info["serve"].append(mesh_serve_check("qwen2-moe-a2.7b", ctx, "tp", MESH_MOE, dev))
+        finally:
+            dist.destroy_process_group()
+    info["reduced"] = {"qwen2-moe-a2.7b": f"prompt {MESH_MOE[1]} and {MESH_MOE[2]} tokens (lm_serve: 1024, 32)"}
+    return info
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=5.0, help="TPC-H scale factor (1.5 M rows each)")
@@ -3188,7 +3374,15 @@ def run(args, dev) -> None:
     check(not any(train_launches.values()), f"the LM training path launched engine kernels: {train_launches}")
     lm_train["phase_ms"] = phases.ms["lm_train"]
 
-    # 19. report
+    # 19. the mesh placements on a one-rank mesh; they too launch none of the
+    # engine's kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh, mesh_launches = phases.run("mesh", own_counts, mesh_phase, dev)
+    check(not any(mesh_launches.values()), f"the mesh path launched engine kernels: {mesh_launches}")
+    mesh["phase_ms"] = phases.ms["mesh"]
+
+    # 20. report
     small_tile = report.pop("small_tile")
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -3215,6 +3409,7 @@ def run(args, dev) -> None:
     print(json.dumps({"chaos": chaos}))
     print(json.dumps({"lm_serve": lm_serve}))
     print(json.dumps({"lm_train": lm_train}))
+    print(json.dumps({"mesh": mesh}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

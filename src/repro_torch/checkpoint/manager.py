@@ -19,7 +19,13 @@ Trees are nested dicts keyed as the reference's: ``params/stack_<name>/
 ``models.convert.to_numpy``) or tensors. A training step updates the
 parameters in place, so ``save_checkpoint`` copies every leaf to the
 host on the caller's thread, before the writer thread starts; restoring
-copies into the live parameters under ``no_grad``.
+copies into the live parameters and optimizer state under ``no_grad``.
+
+On a mesh the leaves are DTensors: every rank makes the host copy (each
+leaf whole, a collective), one rank writes the files (``write=False``
+on the others), and restoring has every rank read the whole leaves and
+keep its own shards (``convert.copy_whole``), so a checkpoint restores
+onto any mesh, or onto one device.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 
 from repro_torch.core.keys import KeySchema, pack_columns
 from repro_torch.models.convert import (
+    copy_whole,
     load_lm_from_reference,
     lm_to_reference,
     nest,
@@ -131,12 +138,16 @@ def save_checkpoint(
     n_chunks: int = 4,
     replicas: int = 1,
     block: bool = True,
+    write: bool = True,
 ) -> _Writer | None:
     """Write ``tree`` at ``directory/step_<k>`` (atomically). Every leaf is
     copied to the host before this returns; with ``block=False`` the files
     are written by a thread, returned. With ``replicas > 1`` the manifest
-    entry order differs per replica (the data files are shared)."""
+    entry order differs per replica (the data files are shared). With
+    ``write=False`` only the host copy is made (a mesh's other ranks)."""
     host = [(p, to_numpy(v) if isinstance(v, torch.Tensor) else np.array(v)) for p, v in flatten(tree).items()]
+    if not write:
+        return None
 
     def _write():
         final = os.path.join(directory, f"step_{step:08d}")
@@ -256,14 +267,24 @@ def _same_layout(live: dict, restored: dict, where: str) -> None:
                              f"the state {tuple(v.shape)} {v.dtype}")
 
 
+def _copy_into(live: dict, restored: dict) -> None:
+    for k, v in live.items():
+        if isinstance(v, dict):
+            _copy_into(v, restored[k])
+        else:
+            copy_whole(v, restored[k])
+
+
 @torch.no_grad()
 def load_train_tree(model: LM, opt_state: dict, tree: dict) -> None:
     """Copy a training state (``train_tree``'s layout, numpy or CPU
-    tensors) into the live parameters and ``opt_state``."""
+    tensors) into the live parameters and the tensors of ``opt_state``
+    (each rank its own shards of DTensors)."""
     load_lm_from_reference(model, tree["params"])
     new = opt_from_reference(tree["opt"], device=model.device)
     _same_layout(opt_state["state"], new["state"], "opt/state")
-    opt_state.update(new)
+    _copy_into(opt_state["state"], new["state"])
+    opt_state["step"] = new["step"]
 
 
 @dataclasses.dataclass
@@ -273,6 +294,7 @@ class CheckpointManager:
     n_chunks: int = 4
     replicas: int = 3
     async_save: bool = True
+    write: bool = True  # False on a mesh's ranks but the one that writes
     _pending: _Writer | None = None
 
     def maybe_save(self, step: int, model: LM, opt_state: dict) -> bool:
@@ -283,7 +305,7 @@ class CheckpointManager:
         self.wait()
         self._pending = save_checkpoint(
             self.directory, step, train_tree(model, opt_state),
-            n_chunks=self.n_chunks, replicas=self.replicas, block=not self.async_save,
+            n_chunks=self.n_chunks, replicas=self.replicas, block=not self.async_save, write=self.write,
         )
         return True
 

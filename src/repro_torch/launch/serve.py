@@ -8,6 +8,10 @@ embeddings of embedding-input archs, are drawn from
 ``np.random.default_rng(seed)`` in the reference's order, so both
 packages serve the same inputs; the weights come from ``init_lm`` on a
 ``torch.Generator`` seeded with ``seed`` unless a ``model`` is given.
+Under a mesh (``ctx``) every rank calls it alike: the weights are padded
+for the mesh's ``tp`` and placed by ``serve_sharding``, the cache's
+``s_alloc`` is rounded up to a multiple of ``tp``, and decode runs the
+sequence-sharded path; the tokens and logits come back whole.
 
     python -m repro_torch.launch.serve --arch starcoder2-3b [--smoke] [--device cpu]
 """
@@ -23,7 +27,9 @@ import torch
 from repro_torch.configs.registry import ARCHS, get_arch, get_smoke
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.convert import full
 from repro_torch.models.moe import route_log
+from repro_torch.parallel.sharding import MeshCtx
 from repro_torch.serving.steps import make_decode_step, make_prefill_step, serving_device
 
 __all__ = ["serve_batch", "decode_forward_error", "device_agreement", "main"]
@@ -49,28 +55,33 @@ def serve_batch(
     device=None,
     dtype=None,
     model: lm.LM | None = None,
+    ctx: MeshCtx | None = None,
+    serve_sharding: str = "fsdp",
 ) -> dict:
     """Greedy decoding of ``gen_tokens`` tokens after a prompt of
     ``prompt_len`` for ``batch_size`` sequences. Returns the walls, decode
     tokens/s, the generated tokens ``[B, gen_tokens]`` (codebook 0 for
     multi-codebook archs), the last step's logits and the parameter and
-    cache bytes."""
+    cache bytes (under a mesh, those this rank holds)."""
     dev = serving_device(device)
+    tp = ctx.tp_size if ctx else 1
     if model is None:
-        model = lm.init_lm(cfg, generator=torch.Generator(dev).manual_seed(seed), device=dev, dtype=dtype)
+        model = lm.init_lm(cfg, generator=torch.Generator(dev).manual_seed(seed), device=dev, dtype=dtype, tp=tp)
     elif dtype is not None:
         raise ValueError("dtype applies to the weights serve_batch draws, not to a given model")
     rng = np.random.default_rng(seed)
     s_alloc = prompt_len + gen_tokens
+    if ctx is not None:
+        s_alloc = -(-s_alloc // tp) * tp
 
     if cfg.input_mode == "tokens":
         batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch_size, prompt_len)), device=dev)}
     else:
         batch = {"embeds": _embeds(rng, (batch_size, prompt_len, cfg.d_model), dev)}
 
-    prefill_step = make_prefill_step(cfg, s_alloc=s_alloc, q_chunk=min(512, prompt_len),
-                                     kv_chunk=min(1024, prompt_len), device=dev)
-    decode_step = make_decode_step(cfg, device=dev)
+    prefill_step = make_prefill_step(cfg, ctx, s_alloc=s_alloc, q_chunk=min(512, prompt_len),
+                                     kv_chunk=min(1024, prompt_len), serve_sharding=serve_sharding, device=dev)
+    decode_step = make_decode_step(cfg, ctx, serve_sharding=serve_sharding, device=dev)
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -101,11 +112,16 @@ def serve_batch(
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "decode_tok_s": batch_size * gen_tokens / max(t_decode, 1e-9),
-        "tokens": torch.cat(generated, dim=1).cpu().numpy(),
-        "logits": logits,
-        "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
-        "cache_bytes": sum(c.numel() * c.element_size() for c in cache.values()),
+        "tokens": torch.cat([full(t) for t in generated], dim=1).cpu().numpy(),
+        "logits": full(logits),
+        "param_bytes": sum(_held(p).numel() * p.element_size() for p in model.parameters()),
+        "cache_bytes": sum(_held(c).numel() * c.element_size() for c in cache.values()),
     }
+
+
+def _held(t: torch.Tensor) -> torch.Tensor:
+    """What this rank holds of ``t``: a DTensor's shard, else ``t``."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def decode_forward_error(model: lm.LM, batch: dict, *, device=None, q_chunk: int = 512,

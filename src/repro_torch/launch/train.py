@@ -9,6 +9,12 @@ no device it raises). The weights come from ``init_lm`` on a
 draws and the failure plan are the reference's, so both packages see the
 same batches, and a checkpoint either writes resumes in the other.
 
+Under a mesh (``ctx``, a live ``DeviceMesh``) every rank runs the loop
+alike: the weights are padded for the mesh's ``tp``, the parameters and
+the optimizer state placed by their specs (``place_train_state``), each
+batch placed by ``batch_specs``; rank 0 writes the checkpoints, from
+whole tensors, and every rank restores onto the mesh after a barrier.
+
     python -m repro_torch.launch.train --arch starcoder2-3b [--smoke] [--steps 4] [--device cpu]
 """
 
@@ -28,11 +34,20 @@ from repro_torch.ft.failures import FailureInjector, FailurePlan
 from repro_torch.launch.serve import _sync
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.convert import param_leaves
+from repro_torch.models.convert import full, param_leaves
 from repro_torch.models.moe import route_log
-from repro_torch.serving.steps import MESH_SLICE, serving_device
+from repro_torch.parallel.sharding import MeshCtx, place
+from repro_torch.serving.steps import serving_device
 from repro_torch.training.optimizer import OptConfig, init_opt
-from repro_torch.training.steps import TrainSettings, loss_and_grads, make_train_step, train_params
+from repro_torch.training.steps import (
+    TrainSettings,
+    batch_specs,
+    loss_and_grads,
+    make_train_step,
+    place_train_state,
+    train_ctx,
+    train_params,
+)
 
 __all__ = ["TrainLoopConfig", "run_training", "train_agreement", "main"]
 
@@ -54,15 +69,16 @@ class TrainLoopConfig:
     failure_plan: FailurePlan = dataclasses.field(default_factory=FailurePlan)
 
 
-def run_training(cfg: ArchConfig, loop: TrainLoopConfig, ctx=None, *, resume: bool = True, device=None) -> dict:
+def run_training(cfg: ArchConfig, loop: TrainLoopConfig, ctx: MeshCtx | None = None, *, resume: bool = True,
+                 device=None) -> dict:
     """Returns the reference's summary (losses, recovery log, data-routing
     stats, ``steps_run``) and, measured on the host clock after a device
     synchronize, ``init_s`` (weights and optimizer state), per step
     ``data_s`` (drawing the batch and moving it to the device) and
     ``step_s`` (the train step up to reading its loss), and per step the
     ``grad_norms``."""
-    if ctx is not None:
-        raise NotImplementedError(MESH_SLICE)
+    if ctx is not None and not ctx.live:
+        raise ValueError("run_training runs on a live DeviceMesh, not on an abstract one")
     dev = serving_device(device)
     corpus = SyntheticCorpus(CorpusSpec(n_docs=20_000, vocab_size=cfg.vocab_size, seed=loop.seed))
     pipeline = HRDataPipeline(
@@ -81,18 +97,29 @@ def run_training(cfg: ArchConfig, loop: TrainLoopConfig, ctx=None, *, resume: bo
         kv_chunk=min(1024, loop.seq_len),
         opt=loop.opt,
     )
-    step_fn, _, _ = make_train_step(cfg, None, settings, device=dev)
+    step_fn, _, _ = make_train_step(cfg, ctx, settings, device=dev)
 
     t_init = time.perf_counter()
-    model = lm.init_lm(cfg, generator=torch.Generator(dev).manual_seed(loop.seed), device=dev)
+    tp = ctx.tp_size if ctx else 1
+    model = lm.init_lm(cfg, generator=torch.Generator(dev).manual_seed(loop.seed), device=dev, tp=tp)
     opt_state = init_opt(param_leaves(model), loop.opt)
+    if ctx is not None:
+        place_train_state(cfg, train_ctx(cfg, ctx, settings), settings, model, opt_state)
     _sync(dev)
     init_s = time.perf_counter() - t_init
     start_step = 0
 
-    ckpt = CheckpointManager(loop.ckpt_dir, every=loop.ckpt_every, replicas=loop.replication_factor)
+    ckpt = CheckpointManager(loop.ckpt_dir, every=loop.ckpt_every, replicas=loop.replication_factor,
+                             write=ctx is None or torch.distributed.get_rank() == 0)
+
+    def restore() -> int | None:
+        ckpt.wait()
+        if ctx is not None:  # the writing rank has finished
+            torch.distributed.barrier()
+        return ckpt.restore_latest(model, opt_state)
+
     if resume:
-        restored = ckpt.restore_latest(model, opt_state)
+        restored = restore()
         if restored is not None:
             start_step = restored
 
@@ -104,8 +131,7 @@ def run_training(cfg: ArchConfig, loop: TrainLoopConfig, ctx=None, *, resume: bo
         if injector.maybe_fail(step):
             # node lost: data replicas already rebuilt by the injector via
             # HR Recovery; restart model state from the last checkpoint.
-            ckpt.wait()
-            restored = ckpt.restore_latest(model, opt_state)
+            restored = restore()
             if restored is not None:
                 step = restored + 1
         t = time.perf_counter()
@@ -125,6 +151,8 @@ def run_training(cfg: ArchConfig, loop: TrainLoopConfig, ctx=None, *, resume: bo
             tok_s = loop.batch_size * loop.seq_len * step / max(dt, 1e-9)
             print(f"step {step:5d} loss {loss:7.4f} lr {float(metrics['lr']):.2e} {tok_s:9.0f} tok/s")
     ckpt.wait()
+    if ctx is not None:
+        torch.distributed.barrier()
 
     return {
         "final_loss": losses[-1] if losses else float("nan"),
@@ -140,34 +168,42 @@ def run_training(cfg: ArchConfig, loop: TrainLoopConfig, ctx=None, *, resume: bo
     }
 
 
-def train_agreement(model_a: lm.LM, model_b: lm.LM, batch: dict, settings: TrainSettings) -> dict:
-    """The same weights on two devices (``model_b`` a copy of ``model_a``):
-    the loss and gradients of ``batch`` on each, then one train step on
-    each from fresh optimizer state. Returns the largest differences: of
-    the loss (``loss``), of the gradients over the largest gradient
-    magnitude (``grad_rel``), of the step's loss (``step_loss``) and of its
-    gradient norm over the norm (``step_grad_norm_rel``), and of the
-    stepped parameters: ``params`` where both runs' gradients exceed
-    ``1e-5`` of the largest magnitude, ``params_noise`` elsewhere (Adam's
-    first update is the learning rate times the gradient's sign wherever
-    the gradient is far above ``eps``, so a gradient at the rounding level
-    that flips sign moves its parameter up to twice the rate apart); for
-    an MoE model ``expert_choices_differ``, the (token, choice) selections
-    of all its routing calls that differ (loss and gradients,
-    ``settings.remat`` as given)."""
+def train_agreement(model_a: lm.LM, model_b: lm.LM, batch: dict, settings: TrainSettings, *,
+                    ctx: MeshCtx | None = None) -> dict:
+    """The same weights in two runs (``model_b`` a copy of ``model_a``, on
+    another device or, under ``ctx``, placed on a mesh): the loss and
+    gradients of ``batch`` in each, then one train step in each from fresh
+    optimizer state. Returns the largest
+    differences: of the loss (``loss``), of the gradients over the largest
+    gradient magnitude (``grad_rel``), of the step's loss (``step_loss``)
+    and of its gradient norm over the norm (``step_grad_norm_rel``), and
+    of the stepped parameters: ``params`` where both runs' gradients
+    exceed ``1e-5`` of the largest magnitude, ``params_noise`` elsewhere
+    (Adam's first update is the learning rate times the gradient's sign
+    wherever the gradient is far above ``eps``, so a gradient at the
+    rounding level that flips sign moves its parameter up to twice the
+    rate apart); for an MoE model ``expert_choices_differ``, the (token,
+    choice) selections of all its routing calls that differ (loss and
+    gradients, ``settings.remat`` as given), unless a mesh splits the
+    batch, when each rank routes its own rows only. Under a mesh every
+    rank calls it alike."""
     out, grads, losses, routes, steps = {}, [], [], [], []
-    for model in (model_a, model_b):
-        dev = model.device
+    for model, c in ((model_a, None), (model_b, ctx)):
+        dev, cfg = model.device, model.cfg
         on = {k: v.to(dev) for k, v in batch.items()}
+        placed, tctx = on, train_ctx(cfg, c, settings)
+        if c is not None:
+            place_train_state(cfg, tctx, settings, model)
+            placed = {k: place(v, tctx, batch_specs(cfg, tctx)[k]) for k, v in on.items()}
         with route_log(model) as log:
-            loss, _, g = loss_and_grads(model, on, settings)
+            loss, _, g = loss_and_grads(model, placed, settings, tctx)
         losses.append(float(loss))
-        grads.append([x.float().cpu() for x in g])
+        grads.append([full(x).float().cpu() for x in g])
         routes.append([c["choices"].cpu() for c in log.calls])
-        step, _, _ = make_train_step(model.cfg, None, settings, device=dev)
+        step, _, _ = make_train_step(cfg, c, settings, device=dev)
         _, _, metrics = step(model, init_opt(param_leaves(model), settings.opt), on)
         steps.append((float(metrics["loss"]), float(metrics["grad_norm"]),
-                       [p.detach().float().cpu() for p in train_params(model)]))
+                       [full(p.detach()).float().cpu() for p in train_params(model)]))
     out["loss"] = abs(losses[0] - losses[1])
     g_max = max(float(x.abs().max()) for x in grads[1])
     out["grad_rel"] = max(float((a - b).abs().max()) for a, b in zip(*grads)) / max(g_max, 1e-30)
@@ -179,7 +215,7 @@ def train_agreement(model_a: lm.LM, model_b: lm.LM, batch: dict, settings: Train
         signal = torch.minimum(ga.abs(), gb.abs()) > 1e-5 * g_max
         out["params"] = max(out["params"], float(gap[signal].max()) if signal.any() else 0.0)
         out["params_noise"] = max(out["params_noise"], float(gap[~signal].max()) if (~signal).any() else 0.0)
-    if routes[0] or routes[1]:
+    if (routes[0] or routes[1]) and not (ctx is not None and ctx.dp_size > 1):
         if [r.shape for r in routes[0]] != [r.shape for r in routes[1]]:
             raise AssertionError("the two runs routed a different number or shape of calls")
         out["expert_choices_differ"] = sum(int((a != b).sum()) for a, b in zip(*routes))

@@ -2,10 +2,11 @@
 (DeepSeek-V3), the counterpart of ``repro.models.attention``:
   * full sequence (prefill): ``flash_attention`` (chunked online softmax
     in plain torch ops);
-  * decode: one query token against the whole cache, its softmax partial
-    (o, m, l) finished locally. The reference's cross-chip combine (a
-    sequence-sharded cache under a mesh axis) comes with the port's
-    ``DeviceMesh`` (ROADMAP item 7f).
+  * decode: one query token against a cache whose *sequence* dim may be
+    sharded over the ``model`` mesh axis (SP). Each shard computes a
+    partial (o, m, l) over its own slots and ``_combine_over_axis``
+    merges them with an exp-rescaled sum over the axis's process group
+    (flash-decoding across ranks); ``group=None`` finishes locally.
 
 MLA decode takes the absorbed form: scores against the latent cache
 directly (q_nope absorbed through W_uk by the caller, the output through
@@ -18,20 +19,23 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.parallel.padding import PaddedDims
 from .config import ArchConfig
-from .layers import NEG, KeepFloat32, apply_rope, dense, dense_init, flash_attention, rmsnorm
+from .layers import NEG, KeepFloat32, apply_rope, dense, dense_init, fit_split, flash_attention, rmsnorm
 
 __all__ = [
     "GQA",
     "MLA",
     "init_gqa",
+    "gqa_axes",
     "gqa_forward",
     "gqa_project_decode",
     "gqa_attend_decode",
     "init_mla",
+    "mla_axes",
     "mla_forward",
     "mla_project_decode",
     "mla_attend_decode",
@@ -59,9 +63,17 @@ def init_gqa(cfg: ArchConfig, pd: PaddedDims, *, generator, device, dtype) -> GQ
     return GQA(wq, dense_init(d, hkv * dh, **kw), dense_init(d, hkv * dh, **kw), dense_init(hq * dh, d, **kw))
 
 
+def gqa_axes(cfg: ArchConfig, pd: PaddedDims) -> dict:
+    """Logical axes of the four projections; the small KV projections are
+    replicated unless their head count is a multiple of 8."""
+    kv_sharded = pd.n_kv_heads % 8 == 0
+    kv = ("fsdp", "heads") if kv_sharded else ("fsdp", None)
+    return {"wq": ("fsdp", "heads"), "wk": kv, "wv": kv, "wo": ("heads", "fsdp")}
+
+
 def _split_heads(x: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
     b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, d_head)
+    return fit_split(x, 2, n_heads).reshape(b, s, n_heads, d_head)
 
 
 def gqa_forward(
@@ -101,9 +113,20 @@ def _partial_softmax(scores: torch.Tensor, values: torch.Tensor, spec: str = "..
     return o, m, l
 
 
-def _combine_local(o: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
-    """The reference's ``_combine_over_axis`` with ``axis_name=None``."""
-    return o / torch.clamp(l[..., None], min=1e-30)
+def _combine_over_axis(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, group=None) -> torch.Tensor:
+    """Exp-rescaled sum of softmax partials over the ranks of ``group`` (a
+    process group): the largest ``m`` over the group, then the sums of
+    ``l·scale`` and ``o·scale`` with ``scale = exp(m - max m)``. With
+    ``group=None`` the partial is finished locally."""
+    if group is None:
+        return o / torch.clamp(l[..., None], min=1e-30)
+    g_m = m.clone()
+    dist.all_reduce(g_m, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.exp(m - g_m)
+    g_l, g_o = l * scale, o * scale[..., None]
+    dist.all_reduce(g_l, group=group)
+    dist.all_reduce(g_o, group=group)
+    return g_o / torch.clamp(g_l[..., None], min=1e-30)
 
 
 def gqa_project_decode(
@@ -136,10 +159,13 @@ def gqa_attend_decode(
     pd: PaddedDims,
     *,
     window: int = 0,
+    group=None,
 ) -> torch.Tensor:
     """Decode attention over the cache's valid slots (``0 <= kv_pos <=
     pos``, and inside ``window``) → heads [B,1,Hq·Dh]; the scale divides
-    the scores after the product, as in the reference."""
+    the scores after the product, as in the reference. Under a mesh the
+    cache is this rank's slots and ``group`` the ranks that hold the
+    others."""
     dh = cfg.d_head
     B = q.shape[0]
     hq, hkv = pd.n_heads, pd.n_kv_heads
@@ -151,8 +177,8 @@ def gqa_attend_decode(
     if window:
         valid = valid & (kv_pos > pos - window)
     s = torch.where(valid[None, None, None, :], s, NEG)
-    o, _, l = _partial_softmax(s, v_cache.transpose(1, 2)[:, :, None, :, :])
-    o = _combine_local(o, l)
+    o, m, l = _partial_softmax(s, v_cache.transpose(1, 2)[:, :, None, :, :])
+    o = _combine_over_axis(o, m, l, group)
     return o.to(q.dtype).reshape(B, 1, hq * dh)  # caller applies wo
 
 
@@ -192,6 +218,19 @@ def init_mla(cfg: ArchConfig, pd: PaddedDims, *, generator, device, dtype) -> ML
         wv_b=dense_init(rkv, h * dv, **kw),
         wo=dense_init(h * dv, d, **kw),
     )
+
+
+def mla_axes(cfg: ArchConfig, pd: PaddedDims) -> dict:
+    return {
+        "wq_a": ("fsdp", None),
+        "q_a_norm": (None,),
+        "wq_b": (None, "heads"),
+        "wkv_a": ("fsdp", None),
+        "kv_a_norm": (None,),
+        "wk_b": (None, "heads"),
+        "wv_b": (None, "heads"),
+        "wo": ("heads", "fsdp"),
+    }
 
 
 def _mla_qkv(p: MLA, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig, pd: PaddedDims):
@@ -256,14 +295,17 @@ def mla_attend_decode(
     pos: int,
     cfg: ArchConfig,
     pd: PaddedDims,
+    *,
+    group=None,
 ) -> torch.Tensor:
     """Absorbed-form MLA decode → the latent context [B, H, rkv] in the
-    cache's type; the caller applies W_uv and ``wo``."""
+    cache's type; the caller applies W_uv and ``wo``. ``group`` as in
+    ``gqa_attend_decode``."""
     q_eff = q_eff[:, 0].float()
     s_nope = torch.einsum("bhr,bsr->bhs", q_eff, ckv_cache.float())
     s_rope = torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(), krope_cache.float())
     s = (s_nope + s_rope) / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
     valid = (kv_pos >= 0) & (kv_pos <= pos)
     s = torch.where(valid[None, None, :], s, NEG)
-    o, _, l = _partial_softmax(s, ckv_cache, "bhs,bsr->bhr")  # over the latent
-    return _combine_local(o, l).to(krope_cache.dtype)
+    o, m, l = _partial_softmax(s, ckv_cache, "bhs,bsr->bhr")  # over the latent
+    return _combine_over_axis(o, m, l, group).to(krope_cache.dtype)

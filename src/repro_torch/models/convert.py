@@ -23,6 +23,14 @@ already) between tensors and numpy. Without ``ml_dtypes`` the port holds
 a bfloat16 array in numpy as its bits, a ``uint16`` array (as the
 reference's checkpoints store it); the loaders take those and numpy's
 ``bfloat16`` alike, bit for bit.
+
+Both directions work at any tensor-parallel degree: the reference's
+``init_lm(key, cfg, tp)`` pads heads, experts and the vocabulary for
+``tp``, and ``lm_from_reference(..., tp=)`` builds the model padded the
+same way. A model whose parameters are DTensors (placed on a mesh) is
+read through ``full_tensor()`` (a collective: every rank calls it) and
+loaded into shard by shard, each rank keeping its own part of the whole
+leaf it reads.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from repro_torch.parallel.padding import padded_dims
 from .attention import GQA, MLA
 from .blocks import MLP, Block, RMSNorm
 from .config import ArchConfig
-from .lm import LM, MTP, stacks_for
+from .lm import LM, MTP, init_lm, stacks_for
 from .moe import MoE
 from .ssm import SSM
 
@@ -44,6 +52,10 @@ __all__ = [
     "lm_to_reference",
     "load_lm_from_reference",
     "param_leaves",
+    "reference_path",
+    "init_lm_shapes",
+    "full",
+    "copy_whole",
     "is_stacked",
     "opt_to_reference",
     "opt_from_reference",
@@ -67,9 +79,17 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.tensor(a, device=device)
 
 
+def full(t: torch.Tensor) -> torch.Tensor:
+    """``t`` whole: a DTensor's ``full_tensor()`` (a collective), else ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t``; bfloat16 as its bits, a ``uint16`` array."""
-    t = t.detach().to("cpu", copy=True)
+    """A host copy of ``t`` (whole, if a DTensor); bfloat16 as its bits, a
+    ``uint16`` array."""
+    t = full(t.detach()).to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -92,6 +112,18 @@ def tree_get(tree: dict, path: tuple[str, ...]):
     return tree
 
 
+def reference_path(name: str) -> tuple[str, ...]:
+    """The reference's tree path of the parameter ``name`` (as
+    ``named_parameters`` gives it); a stack layer's parameter maps to its
+    stack leaf."""
+    parts = name.split(".")
+    if parts[-1] == "scale":  # an RMSNorm's scale is the reference's leaf itself
+        parts = parts[:-1]
+    if parts[0] == "stacks":  # stacks.<name>.<layer>.<...>
+        return (f"stack_{parts[1]}", *parts[3:])
+    return tuple(parts)
+
+
 def param_leaves(model: LM) -> list[tuple[tuple[str, ...], list[torch.nn.Parameter]]]:
     """The reference's parameter leaves in its tree order (paths sorted, as
     ``jax.tree.leaves`` flattens dicts): (path, tensors). A stack leaf
@@ -99,13 +131,7 @@ def param_leaves(model: LM) -> list[tuple[tuple[str, ...], list[torch.nn.Paramet
     reference stacks on axis 0; any other leaf its one tensor."""
     leaves: dict = {}
     for name, p in model.named_parameters():
-        parts = name.split(".")
-        if parts[-1] == "scale":  # an RMSNorm's scale is the reference's leaf itself
-            parts = parts[:-1]
-        if parts[0] == "stacks":  # stacks.<name>.<layer>.<...>, layers in order
-            leaves.setdefault((f"stack_{parts[1]}", *parts[3:]), []).append(p)
-        else:
-            leaves[tuple(parts)] = [p]
+        leaves.setdefault(reference_path(name), []).append(p)
     return sorted(leaves.items())
 
 
@@ -123,6 +149,16 @@ def lm_to_reference(model: LM) -> dict:
     })
 
 
+def copy_whole(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` for ``src`` whole; a DTensor ``dst`` takes its own
+    shard of ``src`` (no collective)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if isinstance(dst, DTensor):
+        src = distribute_tensor(src, dst.device_mesh, dst.placements, src_data_rank=None)
+    dst.copy_(src)
+
+
 @torch.no_grad()
 def load_lm_from_reference(model: LM, params: dict) -> None:
     """Copy the reference's pytree (numpy or CPU tensors) into the model's
@@ -134,7 +170,7 @@ def load_lm_from_reference(model: LM, params: dict) -> None:
             if a.shape != p.shape or a.dtype != p.dtype:
                 raise ValueError(f"{'/'.join(path)}: {tuple(a.shape)} {a.dtype}, the model holds "
                                  f"{tuple(p.shape)} {p.dtype}")
-            p.copy_(a)
+            copy_whole(p, a)
 
 
 def _map(tree, fn):
@@ -161,9 +197,10 @@ def _mlp(m: dict, t) -> MLP:
     return MLP(t(m["wi"]), t(m["wo"]), t(m["wg"]) if "wg" in m else None)
 
 
-def block_from_reference(p: dict, cfg: ArchConfig, kind: str, *, device) -> Block:
-    """One layer's leaves (the reference's ``init_block`` dict, numpy) → a
-    ``Block`` of ``kind`` on ``device``."""
+def block_from_reference(p: dict, cfg: ArchConfig, kind: str, *, device, tp: int = 1) -> Block:
+    """One layer's leaves (the reference's ``init_block`` dict, numpy, made
+    at tensor-parallel degree ``tp``) → a ``Block`` of ``kind`` on
+    ``device``."""
     t = lambda a: _tensor(a, device)  # noqa: E731
     parts: dict = {}
     if "attn" in p:
@@ -183,23 +220,46 @@ def block_from_reference(p: dict, cfg: ArchConfig, kind: str, *, device) -> Bloc
     if "moe" in p:
         m = p["moe"]
         parts["moe"] = MoE(t(m["router"]), t(m["wi"]), t(m["wg"]), t(m["wo"]))
-    return Block(cfg, padded_dims(cfg, 1), kind, RMSNorm(t(p["ln1"])), **parts)
+    return Block(cfg, padded_dims(cfg, tp), kind, RMSNorm(t(p["ln1"])), **parts)
 
 
-def lm_from_reference(params: dict, cfg: ArchConfig, *, device) -> LM:
-    """The reference's ``init_lm`` pytree (numpy leaves) → an ``LM`` on
-    ``device`` holding the same weights, each leaf in its own type."""
+def lm_from_reference(params: dict, cfg: ArchConfig, *, device, tp: int = 1) -> LM:
+    """The reference's ``init_lm(key, cfg, tp)`` pytree (numpy leaves) → an
+    ``LM`` on ``device`` holding the same weights, each leaf in its own
+    type, padded for ``tp``."""
     stacks = {}
     for spec in stacks_for(cfg):
         stacked = params[f"stack_{spec.name}"]
         stacks[spec.name] = [
-            block_from_reference(_layer(stacked, i), cfg, spec.kind, device=device) for i in range(spec.n_layers)
+            block_from_reference(_layer(stacked, i), cfg, spec.kind, device=device, tp=tp)
+            for i in range(spec.n_layers)
         ]
     embed = _tensor(params["embed"], device) if "embed" in params else None
     head = _tensor(params["head"], device) if "head" in params else None
     mtp = None
     if "mtp" in params:
         m = params["mtp"]
-        block = block_from_reference(m["block"], cfg, "attn", device=device)
+        block = block_from_reference(m["block"], cfg, "attn", device=device, tp=tp)
         mtp = MTP(_tensor(m["proj"], device), block, RMSNorm(_tensor(m["norm"], device)))
-    return LM(cfg, embed, stacks, RMSNorm(_tensor(params["final_norm"], device)), head, mtp)
+    model = LM(cfg, embed, stacks, RMSNorm(_tensor(params["final_norm"], device)), head, mtp, tp=tp)
+    ref = {path: shape for path, shape in _ref_shapes(params)}
+    init = init_lm_shapes(cfg, tp)
+    if ref != init:
+        bad = sorted(p for p in set(ref) | set(init) if ref.get(p) != init.get(p))
+        raise ValueError(f"the tree is not {cfg.name}'s at tp={tp}: {bad[:3]} differ")
+    return model
+
+
+def _ref_shapes(tree: dict, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _ref_shapes(v, prefix + (k,))
+        else:
+            yield prefix + (k,), tuple(np.shape(v))
+
+
+def init_lm_shapes(cfg: ArchConfig, tp: int) -> dict[tuple[str, ...], tuple[int, ...]]:
+    """The reference's leaf shapes of ``init_lm`` at ``tp``: the port's
+    model built on the ``meta`` device, each stack leaf stacked."""
+    model = init_lm(cfg, generator=None, device="meta", tp=tp)
+    return {path: ((len(ps),) if is_stacked(path) else ()) + tuple(ps[0].shape) for path, ps in param_leaves(model)}

@@ -8,6 +8,19 @@ cast back to the input's type, as the reference's
 ``preferred_element_type=float32`` does: on the card that holds when
 cuBLAS may not reduce bfloat16 products in reduced precision, which the
 serving steps ensure (``repro_torch.serving.steps.exact_matmul``).
+
+Under a mesh the functions take DTensors. A reshape that splits a
+sharded dimension is shardable only when the shards divide its outer
+factor (a dimension of 2 KV heads cannot stay sharded over 4 ranks);
+``fit_split`` gathers such a dimension first, an explicit
+``redistribute`` beside each of those reshapes (the heads of
+``attention._split_heads``). ``flash_attention`` runs in a region on
+local shards: every (sequence, head) pair is independent, so q, k and v
+keep their batch shards and, where the shards divide the KV heads, their
+head shards (each rank then holds whole query groups), are gathered on
+every other dimension (``redistribute``), and the chunk loop runs on
+``to_local()`` shards; the output comes back as a DTensor placed as q
+(``from_local``; both are differentiable).
 """
 
 from __future__ import annotations
@@ -31,6 +44,13 @@ __all__ = [
     "combine_partial_softmax",
     "NEG",
     "INT32_MAX",
+    "fit_split",
+    "contiguous_stride",
+    "rows",
+    "region_in",
+    "region_out",
+    "row_partial",
+    "replicated",
 ]
 
 #: the score given to masked positions (finite, as in the reference)
@@ -55,6 +75,23 @@ class KeepFloat32(nn.Module):
             return out
 
         return super()._apply(keep_float32, recurse)
+
+
+def fit_split(x: torch.Tensor, dim: int, outer: int) -> torch.Tensor:
+    """``x``, ready for a reshape that splits dimension ``dim`` into
+    ``outer`` times the rest: a DTensor whose shards of ``dim`` do not
+    divide ``outer`` gets that dimension gathered; anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    on = [i for i, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == dim]
+    shards = math.prod(x.device_mesh.size(i) for i in on)
+    if outer % shards == 0:
+        return x
+    pl = [Replicate() if i in on else p for i, p in enumerate(x.placements)]
+    return x.redistribute(x.device_mesh, pl)
 
 
 # -- init ---------------------------------------------------------------------
@@ -118,7 +155,7 @@ def apply_rope(
     if d_rot == 0:
         return x
     x_rot, x_pass = x[..., :d_rot], x[..., d_rot:]
-    inv = rope_freqs(d_rot, theta, device=x.device)  # [d_rot/2]
+    inv = replicated(rope_freqs(d_rot, theta, device=x.device), positions)  # [d_rot/2]
     ang = positions.float()[..., None] * inv  # [B, S, d_rot/2]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -162,7 +199,82 @@ def _pad_seq(x: torch.Tensor, s_pad: int, fill=0) -> torch.Tensor:
     return torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)], dim=1)
 
 
-def flash_attention(
+def rows(x) -> list:
+    """Placements that keep ``x``'s batch shards (dimension 0) and
+    replicate every other dimension."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [p if p == Shard(0) else Replicate() for p in x.placements]
+
+
+def region_in(t: torch.Tensor, mesh, placements, grad=None) -> torch.Tensor:
+    """This rank's shard of ``t`` placed by ``placements``: a DTensor
+    redistributed, a plain tensor (the same on every rank) sliced.
+    ``grad`` are the placements of the shard's gradient when they differ
+    from ``placements`` (``Partial`` where ranks that hold the same shard
+    add different contributions)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh, placements).to_local(grad_placements=grad)
+    return distribute_tensor(t, mesh, placements, src_data_rank=None).to_local()
+
+
+def row_partial(x) -> list:
+    """The gradient placements of a whole tensor that a region uses on
+    ``x``'s batch rows: summed over the ranks that hold other rows,
+    replicated over the rest."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    return [Partial() if p == Shard(0) else Replicate() for p in x.placements]
+
+
+def replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` as a replicated DTensor on ``like``'s mesh when ``like`` is a
+    DTensor, else ``t``: a plain tensor that meets DTensors in an op the
+    backward replays (a mask, RoPE's frequencies), where
+    ``implicit_replication`` does not reach."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(like, DTensor):
+        return t
+    return DTensor.from_local(t, like.device_mesh, [Replicate()] * like.device_mesh.ndim, run_check=False)
+
+
+def region_out(t: torch.Tensor, mesh, placements, shape) -> torch.Tensor:
+    """The DTensor of global ``shape`` whose shard on this rank is ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    return DTensor.from_local(t.contiguous(), mesh, placements, shape=shape, stride=contiguous_stride(shape))
+
+
+def flash_attention(q, k, v, q_positions, kv_positions, **kw) -> torch.Tensor:
+    """``_flash_attention``; on DTensors in the region the module docstring
+    sets out."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(q, DTensor):
+        return _flash_attention(q, k, v, q_positions, kv_positions, **kw)
+    mesh, Hkv = q.device_mesh, k.shape[2]
+    pl = []
+    for i, p in enumerate(q.placements):
+        keep = isinstance(p, Shard) and (p.dim == 0 or (p.dim == 2 and Hkv % mesh.size(i) == 0))
+        pl.append(p if keep else Replicate())
+    o = _flash_attention(*(region_in(t, mesh, pl) for t in (q, k, v)),
+                         *(region_in(t, mesh, rows(q)) for t in (q_positions, kv_positions)), **kw)
+    return region_out(o, mesh, pl, (*q.shape[:3], v.shape[-1]))
+
+
+def contiguous_stride(shape) -> tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def _flash_attention(
     q: torch.Tensor,  # [B, Sq, Hq, Dh]
     k: torch.Tensor,  # [B, Skv, Hkv, Dh]
     v: torch.Tensor,  # [B, Skv, Hkv, Dv]

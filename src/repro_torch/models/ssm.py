@@ -5,23 +5,35 @@ Prefill: a loop over sequence chunks of length Q; within a chunk the
 quadratic "attention-like" form (masked decay matrix L), across chunks
 the float32 state ``[B, H, P, N]`` is carried. Decode: the exact
 recurrent step on (conv window, state). The input projection is split
-into (w_xz, w_bc, w_dt) as in the reference. Head padding for a
-tensor-parallel mesh comes with the port's ``DeviceMesh`` (ROADMAP item
-7f); at tp 1 there is none.
+into (w_xz, w_bc, w_dt) as in the reference.
+
+TP: heads are sharded over the ``model`` axis, padded to a multiple of
+``tp`` (``ssm_dims``); the pad heads have zero ``D``, zero input and
+output projections, and contribute nothing. The forward and decode read
+the padded head count from the module itself (``A_log`` is ``[H_pad]``).
+
+Under a mesh the block runs in a region on each rank's batch rows: its
+weights and the decode state are gathered whole (a ``redistribute``,
+differentiable, whose backward reduce-scatters the gradients), the
+forward or decode runs on ``to_local()`` tensors, and what comes out is
+a DTensor over the same rows, replicated over the other axes. DTensor's
+propagation cannot carry the chunk loop's reshapes of the sequence and
+head dimensions; the heads' weights stay sharded at rest.
 """
 
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .config import ArchConfig
-from .layers import KeepFloat32, dense, dense_init, rmsnorm
+from .layers import KeepFloat32, dense, dense_init, region_in, region_out, rmsnorm, row_partial, rows
 
-__all__ = ["SSM", "ssm_dims", "init_ssm", "ssm_forward", "ssm_decode", "init_ssm_state"]
+__all__ = ["SSM", "ssm_dims", "init_ssm", "ssm_axes", "ssm_forward", "ssm_decode", "init_ssm_state"]
 
 
 class SSM(KeepFloat32):
@@ -42,20 +54,45 @@ class SSM(KeepFloat32):
             setattr(self, name, nn.Parameter(leaves[name]))
 
 
-def ssm_dims(cfg: ArchConfig) -> dict[str, int]:
-    """SSD dimensions at one device (no head padding)."""
+def ssm_dims(cfg: ArchConfig, tp: int = 1) -> dict[str, int]:
+    """Padded SSD dimensions for tensor-parallel degree ``tp``."""
     P = cfg.ssm_head_dim
     H = cfg.d_inner // P
-    return {"P": P, "H": H, "di": H * P, "N": cfg.ssm_state, "conv": cfg.ssm_conv}
+    H_pad = -(-H // tp) * tp if tp > 1 else H
+    return {"P": P, "H": H, "H_pad": H_pad, "di": H_pad * P, "N": cfg.ssm_state, "conv": cfg.ssm_conv}
 
 
-def init_ssm(cfg: ArchConfig, *, generator, device, dtype) -> SSM:
-    """The reference's distributions at tp 1: projections truncated normal,
-    conv weights normal times 0.1, zero biases, ``A_log = log(linspace(1,
-    16, H))``, ``D`` ones, ``dt_bias`` the inverse softplus of a dt drawn
-    log-uniform on [0.001, 0.1]."""
-    dims = ssm_dims(cfg)
-    d, di, N, H, K = cfg.d_model, dims["di"], dims["N"], dims["H"], cfg.ssm_conv
+def _dims(p, cfg: ArchConfig) -> dict[str, int]:
+    """The dimensions of a built module: its own (padded) head count."""
+    P, H = cfg.ssm_head_dim, p.A_log.shape[0]
+    return {"P": P, "H": H, "di": H * P, "N": cfg.ssm_state}
+
+
+def ssm_axes(cfg: ArchConfig, tp: int = 1) -> dict:
+    return {
+        "w_xz": ("fsdp", "heads"),
+        "w_bc": ("fsdp", None),
+        "w_dt": ("fsdp", "heads"),
+        "conv_x": (None, "heads"),
+        "conv_bc": (None, None),
+        "conv_x_b": ("heads",),
+        "conv_bc_b": (None,),
+        "A_log": ("heads",),
+        "D": ("heads",),
+        "dt_bias": ("heads",),
+        "out_norm": ("heads",),
+        "w_out": ("heads", "fsdp"),
+    }
+
+
+def init_ssm(cfg: ArchConfig, *, generator, device, dtype, tp: int = 1) -> SSM:
+    """The reference's distributions: projections truncated normal, conv
+    weights normal times 0.1, zero biases, ``A_log = log(linspace(1, 16,
+    H_pad))``, ``D`` ones, ``dt_bias`` the inverse softplus of a dt drawn
+    log-uniform on [0.001, 0.1]; the pad heads' input and output
+    projections and ``D`` zero."""
+    dims = ssm_dims(cfg, tp)
+    d, di, N, H, K = cfg.d_model, dims["di"], dims["N"], dims["H_pad"], cfg.ssm_conv
     kw = dict(generator=generator, device=device, dtype=dtype)
     f32 = dict(device=device, dtype=torch.float32)
 
@@ -64,7 +101,7 @@ def init_ssm(cfg: ArchConfig, *, generator, device, dtype) -> SSM:
 
     u = torch.empty((H,), **f32).uniform_(generator=generator)
     dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
-    return SSM(
+    p = SSM(
         w_xz=dense_init(d, 2 * di, **kw),
         w_bc=dense_init(d, 2 * N, **kw),
         w_dt=dense_init(d, H, **kw),
@@ -78,6 +115,14 @@ def init_ssm(cfg: ArchConfig, *, generator, device, dtype) -> SSM:
         out_norm=torch.ones((di,), **f32),
         w_out=dense_init(di, d, **kw),
     )
+    if H != dims["H"]:  # zero the pad heads end to end
+        live = dims["H"] * dims["P"]
+        with torch.no_grad():
+            p.w_xz[:, live:di] = 0
+            p.w_xz[:, di + live :] = 0
+            p.w_out[live:, :] = 0
+            p.D[dims["H"] :] = 0
+    return p
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -95,11 +140,42 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) ->
     return F.silu(out + b)
 
 
+def _in_region(fn, p: SSM, x, *args):
+    """``fn(p, x, *args)`` on ``x``'s batch rows with whole weights; plain
+    tensors pass straight through. ``args`` may hold a dict of [B, ...]
+    DTensors (the decode state); every [B, ...] output comes back as a
+    DTensor over the same rows."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return fn(p, x, *args)
+    mesh, pl = x.device_mesh, rows(x)
+    whole = [Replicate()] * mesh.ndim
+    grad = row_partial(x)  # the weights' gradients: summed over the ranks of other rows
+    lp = types.SimpleNamespace(**{n: region_in(getattr(p, n), mesh, whole, grad) for n in SSM.NAMES})
+    args = [{k: region_in(v, mesh, pl) for k, v in a.items()} if isinstance(a, dict) else a for a in args]
+    out = fn(lp, region_in(x, mesh, pl), *args)
+    B = x.shape[0]
+
+    def back(t):
+        if isinstance(t, dict):
+            return {k: back(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(back(v) for v in t)
+        return region_out(t, mesh, pl, (B, *t.shape[1:]))
+
+    return back(out)
+
+
 def ssm_forward(p: SSM, x: torch.Tensor, cfg: ArchConfig, *, chunk: int | None = None, return_state: bool = False):
     """Full-sequence SSD, x [B, S, D] → y [B, S, D]; with ``return_state``
     also the decode cache it leaves: ``conv_x``, ``conv_bc`` (the last K − 1
     projections before the conv, in ``x``'s type) and ``state`` (float32)."""
-    dims = ssm_dims(cfg)
+    return _in_region(_ssm_forward, p, x, cfg, chunk, return_state)
+
+
+def _ssm_forward(p, x: torch.Tensor, cfg: ArchConfig, chunk: int | None, return_state: bool):
+    dims = _dims(p, cfg)
     B, S, _ = x.shape
     di, N, H, P = dims["di"], dims["N"], dims["H"], dims["P"]
     Q = min(chunk or cfg.ssm_chunk, S)
@@ -158,21 +234,25 @@ def ssm_forward(p: SSM, x: torch.Tensor, cfg: ArchConfig, *, chunk: int | None =
     return out, state
 
 
-def init_ssm_state(cfg: ArchConfig, batch: int, *, device, dtype=torch.float32) -> dict[str, torch.Tensor]:
+def init_ssm_state(cfg: ArchConfig, batch: int, *, device, dtype=torch.float32, tp: int = 1) -> dict[str, torch.Tensor]:
     """A zeroed decode cache of one layer; ``state`` is float32 whatever
     ``dtype``."""
-    dims = ssm_dims(cfg)
+    dims = ssm_dims(cfg, tp)
     return {
         "conv_x": torch.zeros((batch, cfg.ssm_conv - 1, dims["di"]), device=device, dtype=dtype),
         "conv_bc": torch.zeros((batch, cfg.ssm_conv - 1, 2 * dims["N"]), device=device, dtype=dtype),
-        "state": torch.zeros((batch, dims["H"], dims["P"], dims["N"]), device=device, dtype=torch.float32),
+        "state": torch.zeros((batch, dims["H_pad"], dims["P"], dims["N"]), device=device, dtype=torch.float32),
     }
 
 
 def ssm_decode(p: SSM, x_t: torch.Tensor, state: dict[str, torch.Tensor],
                cfg: ArchConfig) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One recurrent step, x_t [B, 1, D] → (y [B, 1, D], the new state)."""
-    dims = ssm_dims(cfg)
+    return _in_region(_ssm_decode, p, x_t, state, cfg)
+
+
+def _ssm_decode(p, x_t: torch.Tensor, state: dict[str, torch.Tensor], cfg: ArchConfig):
+    dims = _dims(p, cfg)
     B = x_t.shape[0]
     di, N, H, P = dims["di"], dims["N"], dims["H"], dims["P"]
     x = x_t[:, 0, :]

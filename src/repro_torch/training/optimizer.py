@@ -32,9 +32,10 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.models.convert import is_stacked, nest, tree_get
+from repro_torch.models.convert import full, is_stacked, nest, tree_get
+from repro_torch.parallel.sharding import map_axes
 
-__all__ = ["OptConfig", "Leaves", "init_opt", "opt_update", "global_norm", "schedule"]
+__all__ = ["OptConfig", "Leaves", "init_opt", "opt_update", "opt_state_axes", "global_norm", "schedule"]
 
 #: (path, tensors) pairs, as ``models.convert.param_leaves`` gives them
 Leaves = list[tuple[tuple[str, ...], list[torch.Tensor]]]
@@ -86,6 +87,21 @@ def init_opt(leaves: Leaves, cfg: OptConfig) -> dict:
     return {"step": 0, "state": nest(state)}
 
 
+def opt_state_axes(param_axes: dict, cfg: OptConfig, params_shape: dict) -> dict:
+    """Logical axes of the optimizer state, from the parameters' axes and
+    their stacked shapes (``params_shape``, tensors on any device, as
+    ``steps.train_state_shapes`` gives them): a factored leaf's ``vr``
+    drops the last axis and ``vc`` the one before it."""
+
+    def leaf_axes(axes, p):
+        axes = tuple(axes)
+        if cfg.kind == "adafactor" and _factored(tuple(p.shape)):
+            return {"m": axes, "vr": axes[:-1], "vc": axes[:-2] + axes[-1:]}
+        return {"m": axes, "v": axes}
+
+    return {"step": (), "state": map_axes(leaf_axes, param_axes, params_shape)}
+
+
 def schedule(cfg: OptConfig, step: int) -> float:
     """Warmup then cosine decay to ``min_lr_frac``, in float32 as the
     reference's traced schedule computes it."""
@@ -98,8 +114,31 @@ def schedule(cfg: OptConfig, step: int) -> float:
 
 
 def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, in float32."""
-    return torch.sqrt(torch.stack([torch.sum(torch.square(g.float())) for g in grads]).sum())
+    """sqrt of the sum of every gradient's squares, in float32. DTensor
+    gradients (placed by ``Shard`` and ``Replicate`` only, on a mesh of
+    every rank, as every mesh of the port is) are summed on each rank over
+    its shards, each divided by the number of ranks that hold the same
+    shard, then by one all-reduce over the whole mesh: a replicated scalar
+    DTensor."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(grads[0], DTensor):
+        return torch.sqrt(torch.stack([torch.sum(torch.square(g.float())) for g in grads]).sum())
+    mesh = grads[0].device_mesh
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"global_norm sums over every rank; the mesh holds {mesh.size()} of {dist.get_world_size()}")
+    parts = []
+    for g in grads:
+        copies = 1
+        for size, pl in zip(mesh.shape, g.placements):
+            if pl.is_partial():
+                raise ValueError("global_norm takes gradients placed as their parameters, not partial sums")
+            copies *= size if pl == Replicate() else 1
+        parts.append(torch.sum(torch.square(g.to_local().float())) / copies)
+    total = torch.stack(parts).sum()
+    dist.all_reduce(total)
+    return torch.sqrt(DTensor.from_local(total, mesh, [Replicate()] * mesh.ndim, run_check=False))
 
 
 def _update(g, s: dict, p, cfg: OptConfig, scale, lr: float, bc1: float, bc2: float, decay: bool):
@@ -164,4 +203,4 @@ def opt_update(grads: list[torch.Tensor], opt_state: dict, leaves: Leaves, cfg: 
             for i, (g, p) in enumerate(zip(gs, ps)):
                 _update(g, {k: v[i] for k, v in s.items()}, p, *args)
     opt_state["step"] = step
-    return {"lr": lr, "grad_norm": gnorm}
+    return {"lr": lr, "grad_norm": full(gnorm)}

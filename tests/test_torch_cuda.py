@@ -1287,3 +1287,95 @@ def test_a_checkpoint_written_on_the_card_restores_on_the_cpu(cuda_device, tmp_p
         assert sorted(got) == sorted(flat)
         for path, want in flat.items():
             assert got[path].dtype == want.dtype and np.array_equal(got[path], want), (dev, path)
+
+
+@pytest.fixture
+def nccl_ctx(cuda_device, tmp_path):
+    """A one-rank ("data", "model") = (1, 1) mesh over NCCL, destroyed after."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import init_local_group
+    from repro_torch.parallel.sharding import make_ctx
+
+    init_local_group(0, 1, str(tmp_path / "store"), "nccl")
+    try:
+        yield make_ctx(init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model")))
+    finally:
+        dist.destroy_process_group()
+
+
+MESH_ARCHS = ("starcoder2-3b", "qwen2-moe-a2.7b", "deepseek-v3-671b", "hymba-1.5b", "mamba2-780m")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_mesh_train_step_on_the_card_matches_one_device(nccl_ctx, arch):
+    """A SMOKE train step on the (1, 1) NCCL mesh against the same step
+    without a mesh, both on the card, at the CPU step tests' bounds."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import train_agreement
+    from repro_torch.models.lm import init_lm
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.steps import TrainSettings
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32", capacity_factor=64.0)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 17)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    settings = TrainSettings(remat="dots", q_chunk=8, kv_chunk=8, opt=OptConfig(lr=1e-2, warmup_steps=1))
+    model = init_lm(cfg, generator=torch.Generator(dev).manual_seed(3), device=dev)
+    diff = train_agreement(model, copy.deepcopy(model), batch, settings, ctx=nccl_ctx)
+    assert diff["loss"] <= 1e-5 and diff["grad_rel"] <= 1e-5 and diff["step_grad_norm_rel"] <= 1e-5, diff
+    assert diff.get("expert_choices_differ", 0) == 0, diff
+    assert diff["params"] <= 1e-5 and diff["params_noise"] <= 2 * 1e-2 * (1 + 1e-6), diff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("serve_sharding", ["fsdp", "tp"])
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_mesh_decode_on_the_card_matches_one_device(nccl_ctx, arch, serve_sharding):
+    """A SMOKE ``serve_batch`` on the (1, 1) NCCL mesh against the same run
+    without a mesh: equal tokens, final logits within 1e-4 (float32)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models.lm import init_lm
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32", capacity_factor=64.0)
+    outs = []
+    for ctx in (None, nccl_ctx):
+        model = init_lm(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+        outs.append(serve_batch(cfg, batch_size=2, prompt_len=12, gen_tokens=4, device=dev, model=model, ctx=ctx,
+                                serve_sharding=serve_sharding))
+    assert np.array_equal(outs[0]["tokens"], outs[1]["tokens"])
+    assert float((outs[0]["logits"] - outs[1]["logits"]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_mesh_across_four_cards(tmp_path):
+    """The multi-rank CPU cases of ``tests/test_torch_distributed.py`` and
+    ``tests/test_torch_distributed_train.py`` on a (2, 2) ("data",
+    "model") NCCL mesh of four cards, one rank a card, at their bounds:
+    the sequence-sharded decode of starcoder2-3b, deepseek-v3 and hymba
+    against one card, qwen2-moe's inference placement against its
+    training placement, ``fsdp_all`` against ``fsdp``, the train step
+    against one card (AdamW and Adafactor), and checkpoints restored
+    across tensor-parallel degrees. Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import test_torch_distributed as D
+    import test_torch_distributed_train as DT
+
+    cases = {"sharded_decode": D.SHARDED_DECODE, "serve_ep": D.SERVE_EP, "fsdp_all": DT.FSDP_ALL}
+    cases.update({DT._agree(a[0], a[1]): DT.AGREE % (a[0], a[2], a[2], a[1], DT.LR) for a in DT.AGREEMENT})
+    cases["restore"] = DT.RESTORE % (DT.LR, str(tmp_path), str(tmp_path))
+    got = D.run_cases(cases, D.DECODE + DT.SETUP, shape=(2, 2), backend="nccl")
+    print("four cards:", got)
+    D.test_sharded_decode_matches_one_device(got)
+    D.test_serve_ep_matches_fsdp_placement(got)
+    DT.test_fsdp_all_train_step_matches_fsdp(got)
+    for arch, opt, layers in DT.AGREEMENT:
+        DT.test_mesh_train_step_matches_one_device(got, arch, opt, layers)
+    DT.test_restore_to_different_tp(got)

@@ -388,6 +388,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.training.optimizer, repro_torch.training.steps\n"
         "import repro_torch.data.corpus, repro_torch.data.pipeline\n"
         "import repro_torch.checkpoint.manager, repro_torch.checkpoint.layouts, repro_torch.launch.train\n"
+        "import repro_torch.parallel.sharding, repro_torch.launch.mesh, repro_torch.ft.elastic\n"
+        "import repro_torch.launch.input_specs\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke_import')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
         "print(bad)\n"

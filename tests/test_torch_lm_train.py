@@ -323,5 +323,11 @@ def test_remat_and_mesh_settings_are_checked():
         make_train_step(cfg, None, TrainSettings(remat="some"), device="cpu")
     with pytest.raises(ValueError, match="remat"):
         lm.forward_train(_model("starcoder2-3b", "float32"), _batch("starcoder2-3b")[1], remat="some")
-    with pytest.raises(NotImplementedError):  # a mesh comes with the port's DeviceMesh
-        make_train_step(cfg, object(), TrainSettings(), device="cpu")
+    # the reference's mesh rules: fsdp_all is not for MoE archs, param_mode is one of two
+    from repro_torch.parallel.sharding import AbstractMesh, make_ctx
+
+    ctx = make_ctx(AbstractMesh((2, 4), ("data", "model")))
+    with pytest.raises(ValueError, match="fsdp_all"):
+        make_train_step(TR.get_smoke("qwen2-moe-a2.7b"), ctx, TrainSettings(param_mode="fsdp_all"), device="cpu")
+    with pytest.raises(ValueError, match="param_mode"):
+        make_train_step(cfg, ctx, TrainSettings(param_mode="zero"), device="cpu")

@@ -8,7 +8,8 @@ within 1e-5, bfloat16 within a few units of its last place. The ten
 configs, their parameter counts and their TP padding must equal the
 reference's field for field, and ``init_lm`` must build the reference's
 structure for each. The serving path must refuse to run without a CUDA
-device unless asked for the CPU, and on a mesh (ROADMAP item 7f). The
+device unless asked for the CPU, and a mesh must have a "model" axis and
+a serving placement of "fsdp" or "tp", as the reference's rules say. The
 MoE, SSD, MLA and hybrid modules have their own file,
 ``tests/test_torch_lm_families.py``.
 """
@@ -242,11 +243,16 @@ def test_serving_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_mesh_placements_raise():
+    """The mesh rules the reference enforces: a mesh needs a "model" axis,
+    and a serving placement is "fsdp" or "tp"."""
+    from repro_torch.parallel.sharding import AbstractMesh, make_ctx
+
     cfg = TR.get_smoke("yi-34b")
-    with pytest.raises(NotImplementedError, match="item 7f"):
-        steps.make_prefill_step(cfg, object(), s_alloc=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7f"):
-        steps.make_decode_step(cfg, serve_sharding="tp", device="cpu")
+    with pytest.raises(ValueError, match="'model' axis"):
+        make_ctx(AbstractMesh((2, 4), ("data", "tensor")))
+    with pytest.raises(ValueError, match="serve_sharding"):
+        steps.make_decode_step(cfg, make_ctx(AbstractMesh((2, 4), ("data", "model"))), serve_sharding="ep",
+                               device="cpu")
 
 
 def test_steps_refuse_another_model_or_device():

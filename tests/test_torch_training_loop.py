@@ -518,15 +518,18 @@ def test_train_agreement_holds_the_step_entry_by_entry(monkeypatch, fault):
 
 def test_the_loop_runs_on_the_card_unless_told(monkeypatch):
     """With no CUDA device, ``make_train_step`` and ``run_training`` raise
-    unless ``device`` names another."""
+    unless ``device`` names another; a mesh must hold devices."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dataclasses.replace(TR.get_smoke("starcoder2-3b"), **TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_train_step(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         TT.run_training(cfg, TT.TrainLoopConfig(steps=1))
-    with pytest.raises(NotImplementedError):
-        TT.run_training(cfg, TT.TrainLoopConfig(steps=1), ctx=object(), device="cpu")
+    from repro_torch.parallel.sharding import AbstractMesh, make_ctx
+
+    with pytest.raises(ValueError, match="live DeviceMesh"):  # a mesh of names and sizes runs nothing
+        TT.run_training(cfg, TT.TrainLoopConfig(steps=1), ctx=make_ctx(AbstractMesh((2, 4), ("data", "model"))),
+                        device="cpu")
 
 
 def test_the_cli_trains_on_the_cpu(tmp_path):
